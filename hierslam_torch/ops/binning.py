@@ -1,0 +1,299 @@
+"""Tile binning (port of ``hierslam_tpu/ops/binning.py``: ``bin_bucketed``).
+
+Every Gaussian emits one (tile, depth) pair per tile its screen rect
+covers, with the JAX package's budgeted prefix emission (Gaussians sorted
+by ``tiles_touched`` descending, cell-row ``r`` covering the first ``B_r``
+of them).  The pairs are put in the total order tile, then depth, then
+gaussian id: two stable sorts, the first by id and the second by one
+packed int64 key ``tile << 32 | depth bits`` (depth > 0.2 for every live
+pair, so its float32 bits order like the value).  Unlike the static-shape
+JAX version, emitted-but-empty cells are filtered out before the sort.
+
+With ``sat_margin > 0`` each pair carries quantized per-quadrant lower
+bounds of its alpha over the tile; four global cumsums of ``log1p(-alpha)``
+then give each tile's provable saturation rank ``k_need`` and the
+per-tile need ``k_eff = min(count, max(sat_floor, ceil(margin * k_need)))``.
+Tiles are ranked by need into the capacity classes of ``bucket_spec``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+SAT_SCALE = 255
+T_DONE_LOG = -9.210340371976182  # ln(1e-4)
+
+
+class BucketedLists(NamedTuple):
+    """Depth-ordered per-tile lists in rank-assigned capacity classes."""
+
+    tile_ids: Tuple[torch.Tensor, ...]  # per class: [n_b] int64 tile ids
+    idx: Tuple[torch.Tensor, ...]       # per class: [n_b, k_b] int64, -1 pad
+    count: torch.Tensor                 # [T] true per-tile overlap counts
+    k_eff: torch.Tensor                 # [T] per-tile need used for ranking
+    n_refs: torch.Tensor                # [] total non-pad (tile, slot) refs
+    n_dropped: torch.Tensor             # [] pairs lost to budgets/class caps
+    n_sat_masked: torch.Tensor          # [] provably-invisible masked pairs
+    # visible-rank compaction (None unless visible_budget > 0): idx entries
+    # are RANKS into the touched-descending order, vis_ids[r] is the
+    # gaussian at rank r and rank_of the inverse permutation.
+    vis_ids: Optional[torch.Tensor] = None   # [V] int64
+    rank_of: Optional[torch.Tensor] = None   # [N] int64
+
+
+def default_emission_budgets(n: int, r_cap: int) -> Tuple[int, ...]:
+    """Per-cell-row emission budgets (row 0 covers every gaussian)."""
+    out = []
+    for r in range(r_cap):
+        if r < 2:
+            b = n
+        elif r < 4:
+            b = -(-n // 2)
+        elif r < 8:
+            b = -(-n // 4)
+        else:
+            b = -(-n // 16)
+        out.append(min(n, max(b, 4096)))
+    return tuple(out)
+
+
+def resolve_bucket_spec(spec, num_tiles: int):
+    """Resolve ((n, k), ..., (-1, k_min)) against a tile count: ks strictly
+    descending multiples of k_min, the last class takes the remainder."""
+    spec = tuple((int(n), int(k)) for n, k in spec)
+    if not spec or spec[-1][0] != -1:
+        raise ValueError("bucket_spec's last entry must be (-1, k_min)")
+    ks = [k for _, k in spec]
+    k_min = ks[-1]
+    if any(k <= 0 or k % k_min for k in ks):
+        raise ValueError(f"bucket ks must be positive multiples of the "
+                         f"last class's k ({k_min}): {ks}")
+    if any(a <= b for a, b in zip(ks, ks[1:])):
+        raise ValueError(f"bucket ks must be strictly descending: {ks}")
+    if any(n < 0 for n, _ in spec[:-1]):
+        raise ValueError("only the last bucket may have n = -1")
+    out, left = [], num_tiles
+    for n, k in spec[:-1]:
+        n = min(n, left)
+        out.append((n, k))
+        left -= n
+    out.append((left, k_min))
+    return tuple(out)
+
+
+class SortedPairs(NamedTuple):
+    s_gauss: torch.Tensor       # [M] gaussian ids (or visible ranks) in (tile, depth, id) order
+    starts: torch.Tensor        # [T] per-tile run starts
+    counts: torch.Tensor        # [T] true overlap counts
+    k_eff: torch.Tensor         # [T] saturation-bounded per-tile need
+    n_sat_masked: torch.Tensor  # []
+    n_dropped_pre: torch.Tensor  # [] emission-cap + row-budget drops
+    order: torch.Tensor         # [N] touched-descending gaussian order
+    v_budget: int
+
+
+def _emit_sort_sat(rect_min, rect_max, valid, depth, grid, tile_shape, r_cap,
+                   emission_budgets, sat_margin, sat_floor, xy, conic,
+                   opacity, visible_budget) -> SortedPairs:
+    grid_y, grid_x = grid
+    th, tw = tile_shape
+    n = depth.shape[0]
+    dev = depth.device
+    num_tiles = grid_y * grid_x
+    v_budget = min(visible_budget, n) if visible_budget > 0 else 0
+    base_n = v_budget if v_budget else n
+    budgets = (tuple(emission_budgets) if emission_budgets is not None
+               else default_emission_budgets(base_n, r_cap))
+    budgets = tuple(min(b, base_n) for b in budgets)
+    if len(budgets) < r_cap:
+        raise ValueError("need one emission budget per cell row")
+    with_sat = sat_margin > 0.0
+    if with_sat and (xy is None or conic is None or opacity is None):
+        raise ValueError("sat_margin > 0 requires xy/conic/opacity")
+
+    rect_min = rect_min.long()
+    rect_max = rect_max.long()
+    w_rect = rect_max[:, 0] - rect_min[:, 0]
+    touched_all = torch.where(
+        valid, w_rect * (rect_max[:, 1] - rect_min[:, 1]), torch.zeros_like(w_rect)
+    )
+    n_dropped_emit = (touched_all - r_cap).clamp_min(0).sum()
+    touched = touched_all.clamp_max(r_cap)
+    order = torch.sort(-touched, stable=True).indices
+    o = order[:base_n]
+    rmx, rmy = rect_min[o, 0], rect_min[o, 1]
+    wr = w_rect.clamp_min(1)[o]
+    tch = touched[o]
+    dep = depth[o].float()
+    if with_sat:
+        sx, sy = xy[o, 0].float(), xy[o, 1].float()
+        sca, scb, scc = conic[o, 0].float(), conic[o, 1].float(), conic[o, 2].float()
+        sop = opacity.reshape(-1)[o].float()
+
+    cnt_gt = torch.stack([(touched > r).sum() for r in range(r_cap)])
+    buds = torch.tensor(budgets[:r_cap], dtype=torch.int64, device=dev)
+    n_dropped_budget = (cnt_gt - buds).clamp_min(0).sum()
+
+    tiles_parts, depth_parts, gauss_parts, alpha_parts = [], [], [], []
+    ids_b = o if not v_budget else torch.arange(base_n, device=dev)
+    for r in range(r_cap):
+        b = budgets[r]
+        ok = r < tch[:b]
+        cell_x = rmx[:b] + r % wr[:b]
+        cell_y = rmy[:b] + r // wr[:b]
+        tiles_parts.append((cell_y * grid_x + cell_x)[ok])
+        depth_parts.append(dep[:b][ok])
+        gauss_parts.append(ids_b[:b][ok])
+        if with_sat:
+            # per-quadrant conservative alpha lower bounds on the tile's
+            # 3x3 corner grid, quantized floor-ward (never truncates a
+            # contributor)
+            x0 = (cell_x[ok] * tw).float()
+            y0 = (cell_y[ok] * th).float()
+            bx, by = sx[:b][ok], sy[:b][ok]
+            ba, bb, bc, bo = sca[:b][ok], scb[:b][ok], scc[:b][ok], sop[:b][ok]
+            hw, hh = (tw - 1) * 0.5, (th - 1) * 0.5
+            pgrid = []
+            for cy in (y0, y0 + hh, y0 + (th - 1)):
+                row = []
+                for cx in (x0, x0 + hw, x0 + (tw - 1)):
+                    dx = bx - cx
+                    dy = by - cy
+                    row.append(-0.5 * (ba * dx * dx + bc * dy * dy) - bb * dx * dy)
+                pgrid.append(row)
+            quads = []
+            for iy, ix in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                pmin = torch.minimum(
+                    torch.minimum(pgrid[iy][ix], pgrid[iy][ix + 1]),
+                    torch.minimum(pgrid[iy + 1][ix], pgrid[iy + 1][ix + 1]),
+                )
+                alpha_lb = torch.clamp_max(bo * torch.exp(pmin), 0.99)
+                alpha_lb = torch.where(alpha_lb >= 1.0 / 255.0, alpha_lb,
+                                       torch.zeros_like(alpha_lb))
+                quads.append(torch.floor(alpha_lb / 0.99 * SAT_SCALE).to(torch.int16))
+            alpha_parts.append(torch.stack(quads, -1))
+
+    flat_tile = torch.cat(tiles_parts)
+    flat_depth = torch.cat(depth_parts)
+    flat_gauss = torch.cat(gauss_parts)
+    # (tile, depth, gauss) order: stable sort by gauss, then stable sort by
+    # the packed (tile, depth) key
+    p1 = torch.sort(flat_gauss, stable=True).indices
+    key = (flat_tile[p1] << 32) | flat_depth[p1].view(torch.int32).long()
+    p2 = torch.sort(key, stable=True).indices
+    perm = p1[p2]
+    s_tile = flat_tile[perm]
+    s_gauss = flat_gauss[perm]
+    m = s_gauss.shape[0]
+
+    tile_ids = torch.arange(num_tiles, device=dev)
+    starts = torch.searchsorted(s_tile, tile_ids)
+    ends = torch.searchsorted(s_tile, tile_ids, right=True)
+    counts = ends - starts
+
+    n_sat_masked = torch.zeros((), dtype=torch.int64, device=dev)
+    if with_sat:
+        k_need = torch.zeros((num_tiles,), dtype=torch.int64, device=dev)
+        if m > 0:
+            s_alpha = torch.cat(alpha_parts)[perm]
+            for qi in range(4):
+                alpha_deq = s_alpha[:, qi].float() * (0.99 / SAT_SCALE)
+                csh = torch.cat([
+                    torch.zeros((1,), dtype=torch.float32, device=dev),
+                    torch.cumsum(torch.log1p(-alpha_deq), 0)[:-1],
+                ])
+                csh_start = csh[starts.clamp_max(m - 1)]
+                thresh = csh_start + T_DONE_LOG
+                hits = torch.searchsorted(-csh, -thresh, right=True)
+                k_need = torch.maximum(
+                    k_need, torch.minimum((hits - starts).clamp_min(0), counts)
+                )
+        k_eff = torch.minimum(
+            counts,
+            torch.ceil(sat_margin * k_need.float()).long().clamp_min(int(sat_floor)),
+        )
+        n_sat_masked = (counts - k_eff).sum()
+    else:
+        k_eff = counts
+
+    return SortedPairs(
+        s_gauss=s_gauss, starts=starts, counts=counts, k_eff=k_eff,
+        n_sat_masked=n_sat_masked,
+        n_dropped_pre=n_dropped_emit + n_dropped_budget,
+        order=order, v_budget=v_budget,
+    )
+
+
+def _vis_fields(sp: SortedPairs, n: int):
+    if not sp.v_budget:
+        return None, None
+    rank_of = torch.empty_like(sp.order)
+    rank_of[sp.order] = torch.arange(n, device=sp.order.device)
+    return sp.order[: sp.v_budget], rank_of
+
+
+def bin_bucketed(
+    rect_min: torch.Tensor,
+    rect_max: torch.Tensor,
+    valid: torch.Tensor,
+    depth: torch.Tensor,
+    grid: Tuple[int, int],
+    bucket_spec,
+    tile_shape: Tuple[int, int],
+    max_tiles_per_gaussian: int = 16,
+    emission_budgets: Optional[Sequence[int]] = None,
+    sat_margin: float = 0.0,
+    sat_floor: int = 64,
+    xy: Optional[torch.Tensor] = None,
+    conic: Optional[torch.Tensor] = None,
+    opacity: Optional[torch.Tensor] = None,
+    visible_budget: int = 0,
+) -> BucketedLists:
+    """Rank-bucketed per-tile depth-ordered lists (see :class:`BucketedLists`)."""
+    grid_y, grid_x = grid
+    num_tiles = grid_y * grid_x
+    n = depth.shape[0]
+    spec = resolve_bucket_spec(bucket_spec, num_tiles)
+    sp = _emit_sort_sat(
+        rect_min, rect_max, valid, depth, grid, tile_shape,
+        max_tiles_per_gaussian, emission_budgets, sat_margin, sat_floor,
+        xy, conic, opacity, visible_budget,
+    )
+    s_gauss, starts, counts, k_eff = sp.s_gauss, sp.starts, sp.counts, sp.k_eff
+    m = s_gauss.shape[0]
+    dev = depth.device
+    rank_order = torch.sort(-k_eff, stable=True).indices
+    s_gauss_pad = torch.cat([s_gauss, torch.full((1,), -1, dtype=torch.int64, device=dev)])
+    ids_out, idx_out = [], []
+    n_class_dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    n_refs = torch.zeros((), dtype=torch.int64, device=dev)
+    off = 0
+    for n_b, k_b in spec:
+        ids_b = rank_order[off:off + n_b]
+        off += n_b
+        lim_b = torch.minimum(k_eff[ids_b], torch.tensor(k_b, device=dev))
+        kk = torch.arange(k_b, device=dev)
+        take = starts[ids_b][:, None] + kk[None, :]
+        ok = kk[None, :] < lim_b[:, None]
+        idx_b = torch.where(ok, s_gauss_pad[take.clamp_max(m)],
+                            torch.full_like(take, -1))
+        ids_out.append(ids_b)
+        idx_out.append(idx_b)
+        n_refs = n_refs + lim_b.sum()
+        n_class_dropped = n_class_dropped + (
+            torch.minimum(k_eff[ids_b], counts[ids_b]) - k_b
+        ).clamp_min(0).sum()
+
+    vis_ids, rank_of = _vis_fields(sp, n)
+    return BucketedLists(
+        tile_ids=tuple(ids_out),
+        idx=tuple(idx_out),
+        count=counts,
+        k_eff=k_eff,
+        n_refs=n_refs,
+        n_dropped=n_class_dropped + sp.n_dropped_pre,
+        n_sat_masked=sp.n_sat_masked,
+        vis_ids=vis_ids,
+        rank_of=rank_of,
+    )

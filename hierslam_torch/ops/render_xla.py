@@ -1,0 +1,107 @@
+"""Plain PyTorch tile blend (port of ``hierslam_tpu/ops/render_xla.py``).
+
+This is the plain version of kernel K1 (``csrc/blend.cu``): the same
+per-pixel math over depth-ordered slots, written as dense ``[tiles, P, K]``
+tensor code.  ``alpha = min(0.99, opa exp(power))`` with the ``power > 0``
+and ``alpha < 1/255`` skips; front-to-back transmittance as a cumulative
+product; a contribution is committed while the transmittance after it
+stays >= 1e-4 (a prefix property, since T only falls); the median depth is
+the depth of the slot where T crosses 0.5 (15.0 if none).  Its autograd is
+the oracle for the closed-form backward in ``ops/render_pallas.py``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+ALPHA_MIN = 1.0 / 255.0
+ALPHA_MAX = 0.99
+T_DONE = 1e-4
+MEDIAN_DEFAULT = 15.0
+# bound on the [tiles, P, K] elements one chunk of the plain blend holds
+CHUNK_ELEMS = 1 << 24
+
+
+def pixel_grid(tile_ids: torch.Tensor, tile_shape, grid_x: int):
+    """Pixel centres [B, P] of the tiles ``tile_ids`` on a grid ``grid_x`` wide."""
+    th, tw = tile_shape
+    lin = torch.arange(th * tw, device=tile_ids.device)
+    px = ((tile_ids % grid_x) * tw)[:, None] + lin[None, :] % tw
+    py = ((tile_ids // grid_x) * th)[:, None] + lin[None, :] // tw
+    return px.float(), py.float()
+
+
+def blend_terms(tab: torch.Tensor, ok: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """Per (tile, pixel, slot) blend quantities of a table chunk
+    ``[B, K, 7+F]`` at pixels ``px, py [B, P]``."""
+    dx = tab[:, None, :, 0] - px[:, :, None]
+    dy = tab[:, None, :, 1] - py[:, :, None]
+    ca, cb, cc = tab[:, None, :, 2], tab[:, None, :, 3], tab[:, None, :, 4]
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    alpha = torch.clamp_max(tab[:, None, :, 5] * torch.exp(power), ALPHA_MAX)
+    contrib = (power <= 0.0) & (alpha >= ALPHA_MIN) & ok[:, None, :]
+    a = torch.where(contrib, alpha, torch.zeros_like(alpha))
+    Ta = torch.cumprod(1.0 - a, dim=-1)
+    Tb = torch.cat([torch.ones_like(Ta[..., :1]), Ta[..., :-1]], dim=-1)
+    committed = Ta >= T_DONE
+    w = a * Tb * committed
+    return dx, dy, power, alpha, contrib, a, Ta, Tb, committed, w
+
+
+def _feats(tab: torch.Tensor) -> torch.Tensor:
+    """[B, K, F+2]: features, depth, ones."""
+    dep = tab[..., 6:7]
+    return torch.cat([tab[..., 7:], dep, torch.ones_like(dep)], dim=-1)
+
+
+def tile_chunks(T: int, P: int, K: int):
+    step = max(1, CHUNK_ELEMS // max(1, P * K))
+    return [(lo, min(T, lo + step)) for lo in range(0, T, step)]
+
+
+def blend_table(table: torch.Tensor, ok: torch.Tensor, grid_x: int,
+                tile_shape: Tuple[int, int]):
+    """table [T, K, 7+F], ok [T, K] bool -> (acc [T, P, F+2], final_T [T, P],
+    median [T, P]).  Differentiable by autograd."""
+    T, K, _ = table.shape
+    P = tile_shape[0] * tile_shape[1]
+    accs, fts, meds = [], [], []
+    for lo, hi in tile_chunks(T, P, K):
+        tab, okc = table[lo:hi], ok[lo:hi]
+        px, py = pixel_grid(torch.arange(lo, hi, device=table.device), tile_shape, grid_x)
+        (_, _, _, _, contrib, _, Ta, Tb, committed, w) = blend_terms(tab, okc, px, py)
+        accs.append(torch.einsum("bpk,bkc->bpc", w, _feats(tab)))
+        fts.append(torch.where(committed, Ta, torch.ones_like(Ta)).amin(-1).clamp_max(1.0))
+        crossing = contrib & committed & (Tb > 0.5) & (Ta < 0.5)
+        dep = tab[:, None, :, 6].expand_as(Ta)
+        med = torch.where(crossing, dep, torch.zeros_like(dep)).sum(-1)
+        meds.append(torch.where(crossing.any(-1), med, torch.full_like(med, MEDIAN_DEFAULT)))
+    return torch.cat(accs), torch.cat(fts), torch.cat(meds)
+
+
+def tiles_to_image(x: torch.Tensor, grid: Tuple[int, int], tile_shape, H: int, W: int):
+    """[T, P, C] per-tile pixels -> [C, H, W]; [T, P] -> [H, W]."""
+    gy, gx = grid
+    th, tw = tile_shape
+    if x.dim() == 2:
+        x = x.reshape(gy, gx, th, tw).permute(0, 2, 1, 3)
+        return x.reshape(gy * th, gx * tw)[:H, :W]
+    C = x.shape[-1]
+    x = x.reshape(gy, gx, th, tw, C).permute(4, 0, 2, 1, 3)
+    return x.reshape(C, gy * th, gx * tw)[:, :H, :W]
+
+
+def blend_tiles(g_xy, g_conic, g_opacity, g_depth, g_features, g_valid, *,
+                image_shape, tile_shape, grid):
+    """Composite all tiles from per-tile arrays ``[T, K, ...]``.  Returns
+    ``(channels [F+2, H, W], final_T [H, W], median [H, W])``: the F
+    feature channels, blended depth, and the blend mass."""
+    H, W = image_shape
+    table = torch.cat(
+        [g_xy, g_conic, g_opacity[..., None], g_depth[..., None], g_features], -1
+    )
+    acc, ft, med = blend_table(table, g_valid, grid[1], tile_shape)
+    return (tiles_to_image(acc, grid, tile_shape, H, W),
+            tiles_to_image(ft, grid, tile_shape, H, W),
+            tiles_to_image(med, grid, tile_shape, H, W))

@@ -1,0 +1,191 @@
+"""Densification + keyframe-window mapping (port of ``hierslam_tpu/slam/mapping.py``).
+
+* ``make_densifier``: the silhouette / depth-error non-presence render (one
+  uniform class at the densify K) back-projected into free capacity slots;
+* ``make_mapper``: the ladder (``backend="pallas"``/``"xla"``) mapping phase
+  — one amortized binning per window frame with a 4 px rect margin, then
+  per iteration: render a random window frame, mapping loss, prune
+  (reference order: backward -> prune -> step), a fresh eps=1e-15 Adam on
+  the Gaussians and the persistent eps=1e-8 Adam of the semantic decoder.
+
+The packed stream mapper (``backend="stream"``) and classic clone/split
+densification are not ported yet (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace as _dc_replace
+from typing import Dict
+
+import numpy as np
+import torch
+
+from hierslam_torch import resolve_device
+from hierslam_torch.core import gaussians as G
+from hierslam_torch.core import transforms
+from hierslam_torch.ops.rasterize import RasterConfig, compute_binning
+from hierslam_torch.ops.ssim import ssim_ref_stats
+from hierslam_torch.slam import optim
+from hierslam_torch.slam.losses import LossConfig, lower_median, mapping_loss, render_gaussians
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class PruneConfig:
+    """pruning_dict schema of the configs."""
+
+    start_after: int = 0
+    remove_big_after: int = 0
+    stop_after: int = 20
+    prune_every: int = 20
+    removal_opacity_threshold: float = 0.005
+    final_removal_opacity_threshold: float = 0.005
+    reset_opacities: bool = False
+    reset_opacities_every: int = 500
+
+
+def make_densifier(camera, raster_cfg: RasterConfig, sil_thres: float,
+                   num_semantic: int, device="cuda"):
+    """Add-new-gaussians step: ``densify(params, variables, im, depth,
+    time_idx, generator=None) -> (params, variables, n_added, n_overflow,
+    n_bin_dropped)``."""
+    dev = resolve_device(device)
+    k_dens = raster_cfg.densify_max_per_tile or min(2 * raster_cfg.max_per_tile, 4096)
+    dens_cfg = _dc_replace(raster_cfg, max_per_tile=k_dens, bucket_spec=((-1, k_dens),),
+                           escalate_tiles=0)
+
+    @torch.no_grad()
+    def densify(params, variables, im_gt, depth_gt, time_idx, generator=None):
+        if im_gt.device != dev:
+            raise ValueError(f"densifier built for {dev}, frame on {im_gt.device}")
+        t = int(time_idx)
+        q = params["cam_unnorm_rots"][0, :, t]
+        tr = params["cam_trans"][0, :, t]
+        out = render_gaussians(params, variables["active"], q, tr, camera, dens_cfg,
+                               with_semantic=False, gaussians_grad=False, camera_grad=False)
+        sil = out.final_opacity
+        depth_error = torch.abs(depth_gt - out.depth) * (depth_gt > 0)
+        non_presence = (sil < sil_thres) | (
+            (out.depth > depth_gt) & (depth_error > 50 * lower_median(depth_error))
+        )
+        mask = non_presence.reshape(-1) & (depth_gt > 0).reshape(-1)
+        w2c = transforms.build_w2c(transforms.normalize(q), tr)
+        fields = G.pointcloud_fields(im_gt, depth_gt, camera.intrinsics, w2c,
+                                     num_semantic, generator)
+        params, variables, n_over = G.insert_gaussians(params, variables, fields, mask, float(t))
+        variables = dict(variables)
+        for k in ("means2D_gradient_accum", "denom", "max_2D_radius"):
+            variables[k] = torch.zeros_like(variables[k])
+        return params, variables, mask.sum(), n_over, out.n_dropped
+
+    return densify
+
+
+def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
+                lrs: Dict[str, float], num_iters: int, prune_cfg: PruneConfig,
+                mlp_lr: float = 5e-4, bin_margin_px: float = 4.0, device="cuda"):
+    """Returns ``map_phase(params, variables, window, rand_idx, mlp,
+    mlp_state) -> (params, variables, mlp, mlp_state, losses)``.
+
+    ``window``: im [W,3,H,W], depth [W,H,W], labels [W,L+1,H,W] (optional),
+    time_idx [W]; ``rand_idx`` [num_iters] host ints into the window.
+    ``losses`` holds one [num_iters] device tensor per loss term."""
+    dev = resolve_device(device)
+    if raster_cfg.backend == "stream":
+        raise NotImplementedError(
+            "the packed stream mapper (K3/K4) is the next slice of the port "
+            "(ROADMAP.md, queue 1); use raster.backend='pallas'"
+        )
+    with_sem = bool(loss_cfg.sem_levels)
+    compacted = raster_cfg.visible_budget > 0
+
+    def map_phase(params, variables, window, rand_idx, mlp, mlp_state):
+        if params["means3D"].device != dev:
+            raise ValueError(f"mapper built for {dev}, params on {params['means3D'].device}")
+        gauss_keys = [k for k in G.GAUSSIAN_KEYS if k in params]
+        gp = {k: params[k] for k in gauss_keys}
+        opt = optim.adam_init(gp)
+        variables = dict(variables)
+        tidx = window["time_idx"].long()
+        wq = params["cam_unnorm_rots"][0].T[tidx]
+        wt = params["cam_trans"][0].T[tidx]
+        n_win = tidx.shape[0]
+        w_ssim = [ssim_ref_stats(window["im"][i]) for i in range(n_win)]
+
+        # amortized binning, one per window frame, at the phase-start params
+        with torch.no_grad():
+            scales0 = torch.exp(gp["log_scales"])
+            opac0 = torch.sigmoid(gp["logit_opacities"])
+            binnings = []
+            for i in range(n_win):
+                means_cam, _ = transforms.transform_to_frame(
+                    gp["means3D"], gp["unnorm_rotations"], wq[i], wt[i],
+                    gaussians_grad=False, camera_grad=False)
+                binnings.append(compute_binning(
+                    means_cam, scales0, gp["unnorm_rotations"], camera, raster_cfg,
+                    active=variables["active"], margin_px=bin_margin_px,
+                    opacities=opac0, compact=compacted))
+
+        wants_mlp = with_sem and loss_cfg.use_mlp and mlp is not None
+        traces: Dict[str, list] = {}
+        for it in range(num_iters):
+            k = int(rand_idx[it])
+            labels = window["labels"][k].long() if "labels" in window else None
+            leaves = {n: v.detach().requires_grad_(True) for n, v in gp.items()}
+            mlp_l = ({n: v.detach().requires_grad_(True) for n, v in mlp.items()}
+                     if wants_mlp else None)
+            full = dict(params)
+            full.update(leaves)
+            out = render_gaussians(full, variables["active"], wq[k], wt[k], camera,
+                                   raster_cfg, with_semantic=with_sem, gaussians_grad=True,
+                                   camera_grad=False, binning_cache=binnings[k])
+            loss, parts = mapping_loss(out, window["im"][k], window["depth"][k], labels,
+                                       mlp_l, it, loss_cfg, gt_ssim=w_ssim[k])
+            inputs = list(leaves.values()) + (list(mlp_l.values()) if wants_mlp else [])
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+            ggp = dict(zip(leaves.keys(), grads[:len(leaves)]))
+            gmlp = dict(zip(mlp_l.keys(), grads[len(leaves):])) if wants_mlp else None
+
+            # prune (reference order: backward -> prune -> step)
+            if (prune_cfg.start_after <= it <= prune_cfg.stop_after
+                    and it % prune_cfg.prune_every == 0):
+                thresh = (prune_cfg.final_removal_opacity_threshold
+                          if it == prune_cfg.stop_after
+                          else prune_cfg.removal_opacity_threshold)
+                small = torch.sigmoid(gp["logit_opacities"][:, 0]) < thresh
+                removed = variables["active"] & small
+                if it >= prune_cfg.remove_big_after:
+                    big = torch.exp(gp["log_scales"].amax(1)) > 0.1 * variables["scene_radius"]
+                    removed = removed | (variables["active"] & big)
+                variables["active"] = variables["active"] & ~removed
+                opt = optim.zero_moment_rows(opt, removed)
+            if (prune_cfg.reset_opacities and it > 0
+                    and it % prune_cfg.reset_opacities_every == 0
+                    and it <= prune_cfg.stop_after):
+                gp = dict(gp)
+                gp["logit_opacities"] = torch.full_like(
+                    gp["logit_opacities"], float(np.log(0.01 / 0.99)))
+                opt = optim.zero_moments_for_key(opt, "logit_opacities")
+
+            gp, opt = optim.adam_step(gp, ggp, opt, lrs, eps=1e-15)
+            if wants_mlp:
+                mlp, mlp_state = optim.adam_step(mlp, gmlp, mlp_state,
+                                                 {"w": mlp_lr, "b": mlp_lr}, eps=1e-8)
+            if not compacted:
+                variables["max_2D_radius"] = torch.where(
+                    out.radii > 0,
+                    torch.maximum(variables["max_2D_radius"], out.radii.float()),
+                    variables["max_2D_radius"])
+            parts = {n: v.detach() for n, v in parts.items()}
+            parts["n_grad_dropped"] = out.n_grad_dropped.float()
+            parts["n_map_bin_dropped"] = out.n_dropped.float()
+            for n, v in parts.items():
+                traces.setdefault(n, []).append(v)
+
+        out_params = dict(params)
+        out_params.update({n: v.detach() for n, v in gp.items()})
+        losses = {n: torch.stack(v) for n, v in traces.items()}
+        return out_params, variables, mlp, mlp_state, losses
+
+    return map_phase
