@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (``hierslam_torch``) on one card.
 
-    python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --kernels  # build + kernel checks only
+    python3 chip_smoke.py               # every phase
+    python3 chip_smoke.py --kernels     # build + kernel checks only
+    python3 chip_smoke.py --repeat 3    # the flagship SLAM run three times
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. environment: card name and power limit (nvidia-smi), kernel build with
-   nvcc from ``hierslam_torch/csrc``;
-2. kernels: K1 (blend forward) and K2 (blend backward) against their plain
-   PyTorch versions at the tracking shape (T=3225, K=512, F=3) and one
-   mapping class (T=128, K=4096, F=29), random tables from a seed; error,
-   kernel and plain times (median of CUDA-event timings), roofline bound;
+   nvcc from ``hierslam_torch/csrc`` (one nvcc per source, in parallel);
+2. kernels: K1/K2 (ladder blend) against their plain PyTorch versions at
+   the tracking shape (T=3225, K=512, F=3) and one ladder mapping class
+   (T=128, K=4096, F=29), random tables from a seed; K3/K4 (stream blend)
+   against theirs on the pair stream of a real map (frame 0 of the
+   procedural room at 1200x680 back-projected, binned at the frame-0 pose
+   with the flagship raster config) at F=29 and F=3; errors, kernel and
+   plain times (median of CUDA-event timings), roofline bounds;
 3. reference: a tiny SLAM run (3 frames, 96x64) on the GPU with the
-   kernels against the same run on the CPU with the plain versions;
-4. SLAM: frames 0-7 of the procedural room at 1200x680 with 26 semantic
-   channels, the flagship config (configs/replica/hierslam_semantic_run.py)
-   with ``raster.backend="pallas"``: tracking on frames 1-7, mapping at
-   t=0 and t=7, densify at t=7; launch counts must equal what the config
-   implies, losses must be finite, ``params.npz`` must carry the JAX
-   runner's keys.
+   kernels against the same run on the CPU with the plain versions, once
+   with the ladder mapper and once with the stream mapper;
+4. SLAM, the main path: frames 0-7 of the procedural room at 1200x680 with
+   26 semantic channels, the flagship config
+   (configs/replica/hierslam_semantic_run.py) as shipped
+   (``raster.backend="stream"``): tracking on frames 1-7 (K1/K2), densify
+   at t=7 (K1), stream mapping at t=0 and t=7 (K3/K4); launch counts must
+   equal what the config implies with no plain-version call, losses must
+   be finite, ``params.npz`` must carry the JAX runner's keys;
+5. ladder: the same config with ``raster.backend="pallas"`` on 3 frames
+   (mapping at t=0 and, after a densify, at t=2), with its own count check.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -35,10 +43,12 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TILE = (16, 16)
 P = TILE[0] * TILE[1]
+RW = 128                       # pairs per stream row
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM data sheet, float32 outside the tensor cores
 SEM_LEVELS = (2, 3, 5, 7, 9)   # Replica tree shape: 26 channels over 5 levels
@@ -103,6 +113,23 @@ def random_table(seed: int, T: int, K: int, F: int, grid_x: int, device):
     return (torch.as_tensor(table, device=device), torch.as_tensor(ok, device=device))
 
 
+def walk_counts(contrib, committed, n_slots):
+    """Per pixel of a chunk [B, P, K]: slots walked up to and including the
+    one that ends it (``n_slots`` [B, 1] where none does), the index of the
+    last committed slot (-1 if none), and the committed pairs."""
+    import torch
+
+    K = contrib.shape[-1]
+    comm = contrib & committed
+    stop = contrib & ~committed
+    ks = torch.arange(K, device=contrib.device)
+    first_stop = torch.where(stop.any(-1), (stop * (K - ks)).argmax(-1) + 1,
+                             n_slots.expand(stop.shape[:2]))
+    last = torch.where(comm.any(-1), K - 1 - comm.flip(-1).int().argmax(-1),
+                       torch.full_like(first_stop, -1))
+    return first_stop, last, int(comm.sum())
+
+
 def pair_stats(table, ok, grid_x: int):
     """What the blend needs on this data.  Pairs: per pixel, slots evaluated
     up to and including the one that ends it (forward), slots up to the
@@ -119,18 +146,12 @@ def pair_stats(table, ok, grid_x: int):
     with torch.no_grad():
         for lo, hi in tile_chunks(T, P, K):
             px, py = pixel_grid(torch.arange(lo, hi, device=table.device), TILE, grid_x)
-            (_, _, _, _, contrib, _, _, _, committed, _) = blend_terms(
-                table[lo:hi], ok[lo:hi], px, py)
-            comm = contrib & committed
-            stop = contrib & ~committed
-            ks = torch.arange(K, device=table.device)
-            first_stop = torch.where(stop.any(-1), (stop * (K - ks)).argmax(-1) + 1,
-                                     torch.full(stop.shape[:2], K, device=table.device))
-            last = torch.where(comm.any(-1), K - 1 - comm.flip(-1).int().argmax(-1),
-                               torch.full(comm.shape[:2], -1, device=table.device))
+            terms = blend_terms(table[lo:hi], ok[lo:hi], px, py)
+            first_stop, last, comm = walk_counts(
+                terms[4], terms[8], torch.full((hi - lo, 1), K, device=table.device))
             n_fwd += int(first_stop.sum())
             n_bwd += int((last + 1).sum())
-            n_comm += int(comm.sum())
+            n_comm += comm
             rows_fwd += int(first_stop.amax(-1).sum())
             rows_bwd += int((last + 1).amax(-1).sum())
     return n_fwd, n_bwd, n_comm, rows_fwd, rows_bwd
@@ -138,6 +159,13 @@ def pair_stats(table, ok, grid_x: int):
 
 def n_beyond(err, tol) -> int:
     return int((err > tol).sum())
+
+
+def bound(nbytes, ops):
+    """Least time (ms) for ``nbytes`` of device memory traffic and ``ops``
+    float32 operations, and which of the two sets it."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def check_kernels(name: str, seed: int, T: int, K: int, F: int, grid_x: int, reps: int):
@@ -196,10 +224,6 @@ def check_kernels(name: str, seed: int, T: int, K: int, F: int, grid_x: int, rep
     b_bytes = rows_bwd * (C * 4 + 1) + pix * ((F + 2) + 5) * 4 + T * K * C * 4
     b_ops = 12 * n_bwd + (4 * (F + 2) + 30 + C) * n_comm
 
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
-
     bf, bf_by = bound(f_bytes, f_ops)
     bb, bb_by = bound(b_bytes, b_ops)
     print(f"[kernels] {name}: K1 {ms_f:.4f} ms (plain {plain_f:.3f} ms, bound {bf:.4f} ms "
@@ -207,14 +231,180 @@ def check_kernels(name: str, seed: int, T: int, K: int, F: int, grid_x: int, rep
           f"{bb_by}); pairs fwd {n_fwd} bwd {n_bwd} blended {n_comm}; table rows read fwd "
           f"{rows_fwd} bwd {rows_bwd} of {T * K}", flush=True)
     rows = [
-        dict(name=f"blend_fwd_K1[{name}]", route="cuda", source="hierslam_torch/csrc/blend.cu",
+        dict(kernel="blend_fwd", name=f"blend_fwd_K1[{name}]", route="cuda",
+             source="hierslam_torch/csrc/blend.cu",
              replaces="hierslam_tpu/ops/render_pallas.py:117", ms=ms_f, plain_ms=plain_f,
              bound_ms=bf, bound_by=bf_by, library_ms=None, max_abs_err=fwd_err),
-        dict(name=f"blend_bwd_K2[{name}]", route="cuda", source="hierslam_torch/csrc/blend.cu",
+        dict(kernel="blend_bwd", name=f"blend_bwd_K2[{name}]", route="cuda",
+             source="hierslam_torch/csrc/blend.cu",
              replaces="hierslam_tpu/ops/render_pallas.py:155", ms=ms_b, plain_ms=plain_b,
              bound_ms=bb, bound_by=bb_by, library_ms=None, max_abs_err=bwd_err),
     ]
     return rows, fwd_ok and bwd_ok and pad_ok
+
+
+def stream_inputs(cfg_path: str, n_feat: int, W: int = 1200, H: int = 680, f: float = 600.0):
+    """The pair stream the main path's first mapping iteration blends: frame
+    0 of the procedural room back-projected (one gaussian per pixel, 26
+    semantic channels drawn from a seeded generator; F = 29, or F = 3
+    without them) in a map of SLAMRunner's first bucket of slots (the
+    emission budgets of the binning scale with the slot count), the
+    inactive slots at the sentinel logit, binned at the frame-0 pose with
+    the flagship raster config and the mapper's 4 px margin."""
+    import numpy as np
+    import torch
+
+    from hierslam_torch.config import load_config, raster_config
+    from hierslam_torch.core import gaussians as G
+    from hierslam_torch.core import transforms
+    from hierslam_torch.core.camera import setup_camera
+    from hierslam_torch.ops import render_stream as rs
+
+    dev = torch.device("cuda")
+    ds = room_dataset(1, W, H, f)
+    color, depth, K4, c2w, _ = ds[0]
+    w2c = np.linalg.inv(c2w)
+    camera = setup_camera(W, H, K4[:3, :3], w2c)
+    im = torch.as_tensor(color.transpose(2, 0, 1) / 255.0, dtype=torch.float32, device=dev)
+    d = torch.as_tensor(np.asarray(depth), dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    fl = G.pointcloud_fields(im, d, K4[:3, :3], w2c, n_feat - 3, gen)
+    n = fl["means3D"].shape[0]
+    step, headroom = 512 * 1024, 256 * 1024            # SLAMRunner's bucket defaults
+    bucket = -(-(n + headroom) // step) * step
+    active = torch.arange(bucket, device=dev) < n
+    keys = ["means3D", "log_scales", "logit_opacities", "rgb_colors"]
+    keys += ["semantic"] if n_feat > 3 else []
+    fl = {k: torch.cat([v, torch.zeros((bucket - n,) + v.shape[1:], device=dev)])
+          for k, v in fl.items()}
+    table = torch.cat([fl[k] for k in keys], 1)
+    table[~active, rs.COL_LOGIT] = rs.SENTINEL_LOGIT
+    rc = raster_config(load_config(cfg_path))
+    w2c_t = torch.as_tensor(w2c, dtype=torch.float32, device=dev)
+    q = transforms.matrix_to_quaternion(w2c_t[:3, :3])
+    means_cam, _ = transforms.transform_to_frame(fl["means3D"], fl["unnorm_rotations"], q,
+                                                 w2c_t[:3, 3], gaussians_grad=False,
+                                                 camera_grad=False)
+    b = rs.compute_stream_binning(means_cam, torch.exp(fl["log_scales"]),
+                                  fl["unnorm_rotations"], camera, rc, active=active,
+                                  margin_px=4.0, opacities=torch.sigmoid(fl["logit_opacities"]))
+    table_s = torch.cat([table, rs.sentinel_row(table.shape[1], dev)], 0)
+    stream = table_s[b.lists.idx].contiguous()
+    sc = rs.make_scalars(transforms.build_w2c(transforms.normalize(q), w2c_t[:3, 3]), camera)
+    return stream, sc, b.lists, b.lists.idx == bucket, rc.grid(H, W), (H, W)
+
+
+def stream_pair_stats(stream, sc, row_off, grid, n_feat, img_shape):
+    """What the stream blend needs on this data, as ``pair_stats`` counts it
+    for the ladder: per pixel the pairs walked up to and including the one
+    that ends it (forward) or up to its last committed pair (backward), the
+    committed pairs, and per tile the rows read: up to the row where its
+    last pixel ends (forward) or that holds its last committed pair
+    (backward)."""
+    import torch
+
+    from hierslam_torch.ops import render_stream as rs
+    from hierslam_torch.ops.render_xla import tile_chunks
+
+    T = row_off.shape[0] - 1
+    flat = stream.reshape(-1, stream.shape[-1])
+    k_max = rs.max_tile_pairs(row_off)
+    n_fwd = n_bwd = n_comm = rows_fwd = rows_bwd = 0
+    with torch.no_grad():
+        for lo, hi in tile_chunks(T, P, k_max):
+            pos, inside = rs.tile_view(flat, row_off, lo, hi, k_max)
+            _, terms, _ = rs.blend_view(flat[pos], inside, sc,
+                                        torch.arange(lo, hi, device=stream.device), grid[1],
+                                        TILE, n_feat, img_shape)
+            first_stop, last, comm = walk_counts(terms[4], terms[8],
+                                                 inside.sum(-1, keepdim=True))
+            n_fwd += int(first_stop.sum())
+            n_bwd += int((last + 1).sum())
+            n_comm += comm
+            rows_fwd += int(((first_stop.amax(-1) + RW - 1) // RW).sum())
+            rows_bwd += int((last.amax(-1) // RW + 1).clamp_min(0).sum())
+    return n_fwd, n_bwd, n_comm, rows_fwd, rows_bwd
+
+
+def check_stream_kernels(cfg_path: str, n_feat: int, reps: int, **size):
+    import torch
+
+    from hierslam_torch.ops import kernels, render_stream as rs
+
+    stream, sc, lists, pad, grid, img = stream_inputs(cfg_path, n_feat, **size)
+    ro = lists.row_off
+    R, _, C = stream.shape
+    T = grid[0] * grid[1]
+    F = n_feat
+    name = f"flagship stream R={R} F={F}"
+    print(f"[kernels] {name}: n_rows {int(lists.n_rows)} n_refs {int(lists.n_refs)} n_dropped "
+          f"{int(lists.n_dropped)} n_sat_masked {int(lists.n_sat_masked)} max rows a tile "
+          f"{int((ro[1:] - ro[:-1]).max())}", flush=True)
+    acc, ft, med, last, mpos = kernels.stream_fwd(stream, sc, ro, grid[1], TILE, F, img)
+    torch.cuda.synchronize()
+    acc_p, ft_p, med_p = rs.blend_stream_fwd_plain(stream, sc, ro, grid, TILE, F, img)
+    e_acc = (acc - acc_p).abs().amax(-1)
+    e_ft = (ft - ft_p).abs()
+    e_med = (med - med_p).abs()
+    n_fl = n_beyond(e_acc, TOL["acc"]) + n_beyond(e_ft, TOL["ft"]) + n_beyond(e_med, TOL["med"])
+    fwd_err = max(float(e_acc.max()), float(e_ft.max()), float(e_med.max()))
+    print(f"[kernels] {name} K3: max abs err acc {float(e_acc.max()):.3e} ft "
+          f"{float(e_ft.max()):.3e} med {float(e_med.max()):.3e}; pixels beyond tolerance "
+          f"{n_fl} of {T * P} (allowed 0)", flush=True)
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    gacc = torch.randn(acc.shape, generator=g, device="cuda")
+    gft = torch.randn(ft.shape, generator=g, device="cuda")
+    gmed = torch.randn(med.shape, generator=g, device="cuda")
+    dtab = kernels.stream_bwd(stream, sc, ro, ft, last, mpos, gacc, gft, gmed, grid[1], TILE,
+                              F, img)
+    torch.cuda.synchronize()
+    dtab_p = rs.blend_stream_bwd_plain(stream, sc, ro, gacc, gft, gmed, grid, TILE, F, img,
+                                       mpos=mpos)
+    e_d = (dtab - dtab_p).abs()
+    rel = (e_d / (1.0 + dtab_p.abs())).amax(-1)
+    n_fl_b = n_beyond(rel, TOL["dtab_rel"])
+    bwd_err = float(e_d.max())
+    pad_ok = bool((dtab[pad] == 0).all())
+    print(f"[kernels] {name} K4: max abs err {bwd_err:.3e}, max err/(1+|ref|) "
+          f"{float(rel.max()):.3e}; pairs beyond tolerance {n_fl_b} of {R * RW} (allowed 0); "
+          f"{int(pad.sum())} pad pairs, all exactly 0: {pad_ok}", flush=True)
+
+    ms_f = cuda_ms(lambda: kernels.stream_fwd(stream, sc, ro, grid[1], TILE, F, img), reps)
+    ms_b = cuda_ms(lambda: kernels.stream_bwd(stream, sc, ro, ft, last, mpos, gacc, gft, gmed,
+                                              grid[1], TILE, F, img), reps)
+    plain_f = cuda_ms(lambda: rs.blend_stream_fwd_plain(stream, sc, ro, grid, TILE, F, img), 3)
+    plain_b = cuda_ms(lambda: rs.blend_stream_bwd_plain(stream, sc, ro, gacc, gft, gmed, grid,
+                                                        TILE, F, img, mpos=mpos), 3)
+    n_fwd, n_bwd, n_comm, rows_fwd, rows_bwd = stream_pair_stats(stream, sc, ro, grid, F, img)
+    pix = T * P
+    row_bytes = RW * C * 4
+    # rows up to each tile's last needed pair; per pixel K3 writes acc, ft,
+    # med, last, mpos and K4 reads them back with gft, gmed; K4 writes the
+    # whole d stream.  Operations: ~100 (K3) / ~250 (K4) per projected pair,
+    # 12 per (pixel, pair) walked, and the blend or suffix-sum terms per
+    # committed pair.
+    f_bytes = rows_fwd * row_bytes + pix * ((F + 2) + 4) * 4
+    f_ops = 100 * rows_fwd * RW + 12 * n_fwd + (2 * (F + 2) + 4) * n_comm
+    b_bytes = rows_bwd * row_bytes + pix * ((F + 2) + 5) * 4 + R * row_bytes
+    b_ops = 250 * rows_bwd * RW + 12 * n_bwd + (4 * (F + 2) + 30 + C) * n_comm
+    bf, bf_by = bound(f_bytes, f_ops)
+    bb, bb_by = bound(b_bytes, b_ops)
+    print(f"[kernels] {name}: K3 {ms_f:.4f} ms (plain {plain_f:.3f} ms, bound {bf:.4f} ms by "
+          f"{bf_by}); K4 {ms_b:.4f} ms (plain {plain_b:.3f} ms, bound {bb:.4f} ms by {bb_by}); "
+          f"pairs fwd {n_fwd} bwd {n_bwd} blended {n_comm}; stream rows read fwd {rows_fwd} "
+          f"bwd {rows_bwd} of {R}", flush=True)
+    rows = [
+        dict(kernel="stream_fwd", name=f"stream_fwd_K3[{name}]", route="cuda",
+             source="hierslam_torch/csrc/stream.cu",
+             replaces="hierslam_tpu/ops/render_stream.py:244", ms=ms_f, plain_ms=plain_f,
+             bound_ms=bf, bound_by=bf_by, library_ms=None, max_abs_err=fwd_err),
+        dict(kernel="stream_bwd", name=f"stream_bwd_K4[{name}]", route="cuda",
+             source="hierslam_torch/csrc/stream.cu",
+             replaces="hierslam_tpu/ops/render_stream.py:332", ms=ms_b, plain_ms=plain_b,
+             bound_ms=bb, bound_by=bb_by, library_ms=None, max_abs_err=bwd_err),
+    ]
+    return rows, n_fl == 0 and n_fl_b == 0 and pad_ok
 
 
 def room_dataset(n: int, W: int, H: int, f: float, n_frames_arc: int = 200):
@@ -260,7 +450,7 @@ def centre_err_cm(runner, ds, n):
     return errs
 
 
-def reference_phase(cfg_path: str):
+def reference_phase(cfg_path: str, backend: str):
     """The same tiny run on the GPU (kernels) and the CPU (plain versions)."""
     import numpy as np
 
@@ -271,7 +461,7 @@ def reference_phase(cfg_path: str):
     traces = {}
     for dev in ("cuda", "cpu"):
         cfg = load_config(cfg_path)
-        cfg["raster"].update(backend="pallas", bucket_spec=((4, 512), (-1, 256)),
+        cfg["raster"].update(backend=backend, bucket_spec=((4, 512), (-1, 256)),
                              track_max_per_tile=256)
         cfg["data"]["num_frames"] = 3
         cfg.update(map_every=3, map_capacity=65536, workdir=tempfile.mkdtemp())
@@ -289,28 +479,39 @@ def reference_phase(cfg_path: str):
     d_track = float(np.max(np.abs(g[0] - c[0]) / np.abs(c[0])))
     d_map = float(np.max(np.abs(g[1] - c[1]) / np.abs(c[1])))
     d_traj = float(np.max(np.abs(g[2] - c[2])))
-    print(f"[reference] GPU kernels vs CPU plain, 3 frames 96x64: tracking loss rel "
+    print(f"[reference] {backend} mapper, GPU kernels vs CPU plain, 3 frames 96x64: "
+          f"tracking loss rel "
           f"{d_track:.2e}, mapping loss rel {d_map:.2e}, trajectory abs {d_traj:.2e} m "
           "(tolerances 1e-2, 1e-2, 1e-3: float32 sums in another order, compounded "
           "over 10 Adam steps)", flush=True)
     return d_track <= 1e-2 and d_map <= 1e-2 and d_traj <= 1e-3
 
 
-def slam_phase(cfg_path: str, n_frames: int = 8):
+def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
+               map_every: Optional[int] = None):
+    """Drive ``SLAMRunner.step`` over ``n_frames`` procedural frames at
+    1200x680 with the flagship config (``backend``/``map_every`` override
+    it when given).  Launch counts are zeroed just before the run and read
+    just after.  Returns (ok, launches, summary)."""
     import numpy as np
     import torch
 
     from hierslam_torch.config import load_config
-    from hierslam_torch.ops import kernels, render_pallas
+    from hierslam_torch.ops import kernels, render_pallas, render_stream
     from hierslam_torch.ops.binning import resolve_bucket_spec
     from hierslam_torch.slam.pipeline import SLAMRunner
 
     t0 = time.time()
     ds = room_dataset(n_frames, 1200, 680, 600.0)
-    print(f"[slam] {n_frames} procedural frames at 1200x680 in {time.time() - t0:.1f} s",
-          flush=True)
     cfg = load_config(cfg_path)
-    cfg["raster"]["backend"] = "pallas"
+    if backend is not None:
+        cfg["raster"]["backend"] = backend
+    if map_every is not None:
+        cfg["map_every"] = map_every
+    backend = cfg["raster"]["backend"]
+    tag = f"[slam {backend}]"
+    print(f"{tag} {n_frames} procedural frames at 1200x680 in {time.time() - t0:.1f} s",
+          flush=True)
     cfg["data"]["num_frames"] = n_frames
     workdir = tempfile.mkdtemp()
     cfg["workdir"] = workdir
@@ -318,14 +519,15 @@ def slam_phase(cfg_path: str, n_frames: int = 8):
     runner = SLAMRunner(cfg, dataset=ds, device="cuda")
 
     kernels.reset_launch_counts()
-    for k in render_pallas.plain_counts:
-        render_pallas.plain_counts[k] = 0
+    for counts in (render_pallas.plain_counts, render_stream.plain_counts):
+        for k in counts:
+            counts[k] = 0
     ok = True
     n_track = n_map = n_dens = 0
     t_run = time.time()
     for t in range(n_frames):
         runner.step(t)
-        line = f"[slam] frame {t}:"
+        line = f"{tag} frame {t}:"
         if t > 0:
             tl = runner.last_tracking_trace["loss"]
             n_track += 1
@@ -336,40 +538,47 @@ def slam_phase(cfg_path: str, n_frames: int = 8):
             n_map += 1
             n_dens += int(t > 0)
             ok &= bool(np.isfinite(ml).all())
-            line += f" mapping loss {ml[0]:.6g} -> {ml[-1]:.6g}"
+            line += (f" mapping loss {ml[0]:.6g} -> {ml[-1]:.6g} n_map_bin_dropped "
+                     f"{float(np.max(runner.last_mapping_trace['n_map_bin_dropped'])):.0f}")
         line += f" n_active {int(runner.variables['n_active'])}"
         print(line, flush=True)
     torch.cuda.synchronize()
     wall = time.time() - t_run
     launches = dict(kernels.launch_counts)
-    plain = dict(render_pallas.plain_counts)
+    plain = dict(render_pallas.plain_counts, **render_stream.plain_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     pn = runner.finalize()
     summ = runner.runtime_summary()
 
-    grid = runner.rc.grid(680, 1200)
-    n_classes = sum(1 for nb, _ in resolve_bucket_spec(runner.rc.spec(), grid[0] * grid[1])
-                    if nb > 0)
     it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
-    want_fwd = n_track * it_t + n_dens + n_map * it_m * n_classes
-    want_bwd = n_track * it_t + n_map * it_m * n_classes
-    print(f"[slam] kernels: {json.dumps(launches)} plain: {json.dumps(plain)} "
-          f"expected blend_fwd {want_fwd} blend_bwd {want_bwd}", flush=True)
-    ok &= launches["blend_fwd"] == want_fwd and launches["blend_bwd"] == want_bwd
+    if backend == "stream":
+        want = {"blend_fwd": n_track * it_t + n_dens, "blend_bwd": n_track * it_t,
+                "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m}
+    else:
+        grid = runner.rc.grid(680, 1200)
+        n_classes = sum(1 for nb, _ in resolve_bucket_spec(runner.rc.spec(), grid[0] * grid[1])
+                        if nb > 0)
+        want = {"blend_fwd": n_track * it_t + n_dens + n_map * it_m * n_classes,
+                "blend_bwd": n_track * it_t + n_map * it_m * n_classes,
+                "stream_fwd": 0, "stream_bwd": 0}
+    print(f"{tag} launches: {json.dumps(launches)} expected: {json.dumps(want)} plain calls: "
+          f"{json.dumps(plain)}", flush=True)
+    ok &= launches == want
     ok &= all(v == 0 for v in plain.values())
     if not ok:
-        print("[slam] non-finite loss or launch counts off", flush=True)
-    print(f"[slam] drops: densify_overflow {summ['densify_overflow']} bin_overflow_max "
-          f"{summ['bin_overflow_max']} map_bin_dropped "
-          f"{float(np.max(runner.last_mapping_trace['n_map_bin_dropped']))} grad_dropped "
+        print(f"{tag} non-finite loss, plain calls or launch counts off", flush=True)
+    print(f"{tag} drops: densify_overflow {summ['densify_overflow']} bin_overflow_max "
+          f"{summ['bin_overflow_max']} n_map_bin_dropped "
+          f"{float(np.max(runner.last_mapping_trace['n_map_bin_dropped']))} n_grad_dropped "
           f"{float(np.max(runner.last_mapping_trace['n_grad_dropped']))}", flush=True)
     errs = centre_err_cm(runner, ds, n_frames)
-    print("[slam] camera-centre error vs GT (cm): " + " ".join(f"{e:.3f}" for e in errs),
+    print(f"{tag} camera-centre error vs GT (cm): " + " ".join(f"{e:.3f}" for e in errs),
           flush=True)
-    print(f"[slam] tracking_iter_ms {summ['tracking_iter_ms']:.3f} mapping_iter_ms "
+    summ["max_memory_allocated_GiB"] = peak_gib
+    print(f"{tag} tracking_iter_ms {summ['tracking_iter_ms']:.3f} mapping_iter_ms "
           f"{summ['mapping_iter_ms']:.3f} tracking_frame_s {summ['tracking_frame_s']:.3f} "
           f"mapping_frame_s {summ['mapping_frame_s']:.3f} wall_s {wall:.1f} n_active "
-          f"{summ['n_active']} max_memory_allocated_GiB "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", flush=True)
+          f"{summ['n_active']} max_memory_allocated_GiB {peak_gib:.2f}", flush=True)
     keys = ("means3D", "rgb_colors", "logit_opacities", "log_scales", "semantic",
             "unnorm_rotations", "cam_unnorm_rots", "cam_trans", "timestep", "intrinsics",
             "w2c", "gt_w2c_all_frames", "keyframe_time_indices", "org_width", "org_height")
@@ -377,16 +586,18 @@ def slam_phase(cfg_path: str, n_frames: int = 8):
     with np.load(path) as data:
         missing = [k for k in keys if k not in data]
         finite = all(np.isfinite(data[k]).all() for k in keys if k not in missing)
-    print(f"[slam] params.npz: missing keys {missing}, all finite {finite}", flush=True)
+    print(f"{tag} params.npz: missing keys {missing}, all finite {finite}", flush=True)
     ok &= not missing and finite and os.path.isfile(
         os.path.join(workdir, cfg["run_name"], "semantic_decoder.npz"))
     ok &= bool(np.all(np.isfinite(errs)))
-    return ok, launches
+    return ok, launches, summ
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", action="store_true", help="build and kernel checks only")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="runs of the flagship SLAM phase (each is checked)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "hierslam_torch")):
         print("hierslam_torch not found beside chip_smoke.py: run from a checkout",
@@ -419,17 +630,40 @@ def main() -> int:
         rows += r
         ok &= good
     if not ok:
-        fail("kernel check")
-    launches = {"blend_fwd": None, "blend_bwd": None}
+        fail("ladder kernel check")
+    cfg_path = os.path.join(ROOT, "configs", "replica", "hierslam_semantic_run.py")
+    for n_feat in (29, 3):
+        r, good = check_stream_kernels(cfg_path, n_feat, 20)
+        rows += r
+        ok &= good
+    if not ok:
+        fail("stream kernel check")
+    print(f"[kernels] checks done at {time.time() - t0:.1f} s", flush=True)
+    launches = {k: None for k in kernels.launch_counts}
     if not args.kernels:
-        cfg_path = os.path.join(ROOT, "configs", "replica", "hierslam_semantic_run.py")
-        if not reference_phase(cfg_path):
-            fail("GPU run disagrees with the CPU reference")
-        good, launches = slam_phase(cfg_path)
+        for backend in ("pallas", "stream"):
+            if not reference_phase(cfg_path, backend):
+                fail(f"GPU run with the {backend} mapper disagrees with the CPU reference")
+        print(f"[reference] done at {time.time() - t0:.1f} s", flush=True)
+        runs = []
+        for i in range(args.repeat):
+            good, launches, summ = slam_phase(cfg_path)
+            if not good:
+                fail("SLAM phase (flagship as shipped)")
+            runs.append(summ)
+        if args.repeat > 1:
+            for key in ("tracking_iter_ms", "mapping_iter_ms"):
+                vals = [r[key] for r in runs]
+                print(f"[slam stream] {key} over {len(vals)} runs: "
+                      + " ".join(f"{v:.3f}" for v in vals)
+                      + f" median {statistics.median(vals):.3f}", flush=True)
+        print(f"[slam stream] done at {time.time() - t0:.1f} s", flush=True)
+        good, _, _ = slam_phase(cfg_path, backend="pallas", n_frames=3, map_every=3)
         if not good:
-            fail("SLAM phase")
+            fail("SLAM phase (ladder mapper)")
+        print(f"[slam pallas] done at {time.time() - t0:.1f} s", flush=True)
     for row in rows:
-        row["launches"] = launches["blend_fwd" if "fwd" in row["name"] else "blend_bwd"]
+        row["launches"] = launches[row.pop("kernel")]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,491 @@
+// Stream blend forward (K3) and backward (K4) for Hopper (sm_90a).
+//
+// K3 replaces hierslam_tpu/ops/render_stream.py::_fwd_kernel (launched by
+// _run_fwd), K4 replaces ::_bwd_kernel (_run_bwd, the VJP of blend_stream).
+// Plain C interface, loaded with ctypes by hierslam_torch/ops/kernels.py;
+// the wrappers there allocate every output (K4's d stream zero-filled), pass
+// PyTorch's current stream and check the launch error this returns.
+//
+// Input: the ragged pair stream [R, 128, C] float32, C = 5 + F columns per
+// pair (world mean x y z, isotropic log scale, opacity logit, F features),
+// pairs in depth order within a tile; tile t owns rows row_off[t] ..
+// row_off[t+1].  Pad pairs point at a sentinel row (logit -100), whose
+// opacity 3.7e-44 never passes alpha >= 1/255.  The pose and projection
+// constants come as 28 floats in device memory (ops/render_stream.py
+// make_scalars: R row-major, t, full_proj rows 0, 1, 3, fx, fy,
+// 1.3 tan fovx, 1.3 tan fovy), so the caller needs no host sync for them.
+//
+// Built with -fmad=false (ops/kernels.py): the projection and the alpha are
+// written in the operation order of the plain PyTorch version
+// (render_stream.project_pairs, render_xla.blend_terms), so the discrete
+// decisions -- the rect test against the tile, alpha >= 1/255, the T >= 1e-4
+// cutoff -- round as the plain version does instead of moving with FMA
+// contraction.
+//
+// K3 design: one block per tile, one thread per pixel.  For each of the
+// tile's rows the block copies the row's 128 x C floats into shared memory
+// (float4, coalesced), threads 0-127 project one pair each into an 8-float
+// screen record (x, y, conic a b c, opacity, camera depth, valid) in shared
+// memory, and every pixel walks the 128 pairs with K1's arithmetic
+// (csrc/blend.cu).  A pixel stops at the first pair that would take T below
+// 1e-4 and the block retires once all its pixels have -- which the TPU kernel
+// cannot do.  Saved per pixel for K4: final T, the stream position of the
+// last committed pair and that of the median (T = 0.5) crossing, -1 if none.
+// A tile with no rows writes acc 0, T 1, median 15.
+// What bounds it: exp and multiply-add issue per (pixel, pair) up to the
+// termination point; each row is read once per block.
+//
+// K4 design: one block per tile, one thread per pixel, rows back to front
+// from the row holding the tile's largest last-committed position.  Each
+// row is reloaded and re-projected; each pixel recovers T before each pair
+// as T_after / (1 - a) from K3's final T and takes every discrete choice from
+// K3: which pairs commit (position <= its last) and where the median
+// cotangent lands (K3's median position; it is not re-derived from the
+// recovered T, which near 0.5 can fall on the other side).  Per pair, the
+// 7 + F per-pixel terms (screen x, y, conic a b c, opacity, depth with the
+// median term, features) are summed over the tile's pixels with warp
+// shuffles and one pass over the warps in shared memory, in batches of sb
+// pairs (no atomics: each tile owns its rows of the output).  Threads 0-127
+// then chain each pair's screen-space gradient to the raw columns, following
+// render_stream.py:422-479: conic -> cov2d -> J -> camera mean (zero outside
+// the strict fov clamp) and the projective xy -> R^T to the world mean;
+// 2 s^2 g_s2 to the log scale; sigmoid' to the logit.  No pose gradient.
+// Rows past the tile's last committed pair are not written: the wrapper's
+// zero fill leaves them, the pad rows and everything past row_off[T] at 0.
+// What bounds it: the per-pixel suffix-sum arithmetic plus the per-pair
+// reduction over 256 pixels (7 + F values, five shuffle steps each).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define ALPHA_MIN (1.0f / 255.0f)
+#define ALPHA_MAX 0.99f
+#define T_DONE 1e-4f
+#define MEDIAN_DEFAULT 15.0f
+#define RW 128       // pairs per stream row
+#define NSC 28       // pose + projection scalars
+#define NSCR 8       // screen record: x y a b c opacity depth valid
+#define ND 7         // screen-space gradient terms per pair
+
+struct Proj {
+  float px, py, ca, cb, cc, opa, dep;
+  bool valid;
+  float mcx, mcy, ph_x, ph_y, p_w, inv_z, txc, tyc, j00, j02, j11, j12, s2;
+  float cxx, cxy, cyy, det, det_inv;
+};
+
+// In-kernel projection of one raw pair (render_stream.py _project_row and
+// _screen_quantities), shared by K3 and K4.
+__device__ __forceinline__ Proj project_pair(const float* g, const float* sc, float img_w,
+                                             float img_h, float tile_x, float tile_y,
+                                             float th, float tw) {
+  Proj o;
+  const float mx = g[0], my = g[1], mz = g[2], logs = g[3], logit = g[4];
+  o.mcx = sc[0] * mx + sc[1] * my + sc[2] * mz + sc[9];
+  o.mcy = sc[3] * mx + sc[4] * my + sc[5] * mz + sc[10];
+  const float mcz = sc[6] * mx + sc[7] * my + sc[8] * mz + sc[11];
+  const bool in_front = mcz > 0.2f;
+  o.ph_x = sc[12] * o.mcx + sc[13] * o.mcy + sc[14] * mcz + sc[15];
+  o.ph_y = sc[16] * o.mcx + sc[17] * o.mcy + sc[18] * mcz + sc[19];
+  const float ph_w = sc[20] * o.mcx + sc[21] * o.mcy + sc[22] * mcz + sc[23];
+  o.p_w = 1.0f / (ph_w + 1e-7f);
+  o.px = ((o.ph_x * o.p_w + 1.0f) * img_w - 1.0f) * 0.5f;
+  o.py = ((o.ph_y * o.p_w + 1.0f) * img_h - 1.0f) * 0.5f;
+
+  const float fx = sc[24], fy = sc[25], limx = sc[26], limy = sc[27];
+  const float safe_z = (mcz == 0.0f) ? 1.0f : mcz;
+  o.inv_z = 1.0f / safe_z;
+  o.txc = fminf(fmaxf(o.mcx * o.inv_z, -limx), limx);
+  o.tyc = fminf(fmaxf(o.mcy * o.inv_z, -limy), limy);
+  o.j00 = fx * o.inv_z;
+  o.j02 = -fx * o.txc * o.inv_z;
+  o.j11 = fy * o.inv_z;
+  o.j12 = -fy * o.tyc * o.inv_z;
+  const float s = expf(logs);
+  o.s2 = s * s;
+  o.cxx = o.s2 * (o.j00 * o.j00 + o.j02 * o.j02) + 0.3f;
+  o.cxy = o.s2 * (o.j02 * o.j12);
+  o.cyy = o.s2 * (o.j11 * o.j11 + o.j12 * o.j12) + 0.3f;
+  o.det = o.cxx * o.cyy - o.cxy * o.cxy;
+  const bool det_ok = o.det != 0.0f;
+  o.det_inv = 1.0f / (det_ok ? o.det : 1.0f);
+  o.ca = o.cyy * o.det_inv;
+  o.cb = -o.cxy * o.det_inv;
+  o.cc = o.cxx * o.det_inv;
+
+  const float mid = 0.5f * (o.cxx + o.cyy);
+  const float sq = sqrtf(fmaxf(0.1f, mid * mid - o.det));
+  const float radius = ceilf(3.0f * sqrtf(fmaxf(mid + sq, mid - sq)));
+  const float rminx = floorf((o.px - radius) / tw);
+  const float rminy = floorf((o.py - radius) / th);
+  const float rmaxx = floorf((o.px + radius + tw - 1.0f) / tw);
+  const float rmaxy = floorf((o.py + radius + th - 1.0f) / th);
+  const bool rect_ok = (tile_x >= rminx) && (tile_x < rmaxx) && (tile_y >= rminy) &&
+                       (tile_y < rmaxy);
+  o.opa = 1.0f / (1.0f + expf(-logit));
+  o.dep = mcz;
+  o.valid = in_front && det_ok && rect_ok;
+  return o;
+}
+
+// Copy one stream row (RW * C floats, 16-byte aligned) into shared memory.
+__device__ __forceinline__ void load_row(const float* __restrict__ src, float* dst, int C,
+                                         int p, int P) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int i = p; i < RW * C / 4; i += P) d4[i] = s4[i];
+}
+
+// Threads 0..RW-1 project the row's pairs into the shared screen records.
+__device__ __forceinline__ void project_row(const float* s_row, const float* s_sc, float* s_scr,
+                                            int C, int p, float img_w, float img_h,
+                                            float tile_x, float tile_y, float th, float tw) {
+  if (p < RW) {
+    const Proj q = project_pair(s_row + p * C, s_sc, img_w, img_h, tile_x, tile_y, th, tw);
+    s_scr[0 * RW + p] = q.px;
+    s_scr[1 * RW + p] = q.py;
+    s_scr[2 * RW + p] = q.ca;
+    s_scr[3 * RW + p] = q.cb;
+    s_scr[4 * RW + p] = q.cc;
+    s_scr[5 * RW + p] = q.opa;
+    s_scr[6 * RW + p] = q.dep;
+    s_scr[7 * RW + p] = q.valid ? 1.0f : 0.0f;
+  }
+}
+
+template <int MAXF>
+__global__ void stream_fwd_kernel(const float* __restrict__ stream, const float* __restrict__ scal,
+                                  const int* __restrict__ row_off, int R, int C, int grid_x,
+                                  int th, int tw, float img_w, float img_h,
+                                  float* __restrict__ acc, float* __restrict__ ft,
+                                  float* __restrict__ med, int* __restrict__ last,
+                                  int* __restrict__ mpos) {
+  extern __shared__ float4 smem4[];
+  float* s_row = reinterpret_cast<float*>(smem4);  // [RW][C]
+  float* s_scr = s_row + RW * C;                   // [NSCR][RW]
+  __shared__ float s_sc[NSC];
+  const int F = C - 5;
+  const int tile = blockIdx.x;
+  const int P = blockDim.x;
+  const int p = threadIdx.x;
+  if (p < NSC) s_sc[p] = scal[p];
+  const int r0 = row_off[tile];
+  const int r1 = min(row_off[tile + 1], R);
+  const float tile_x = (float)(tile % grid_x);
+  const float tile_y = (float)(tile / grid_x);
+  const float px = (float)((tile % grid_x) * tw + p % tw);
+  const float py = (float)((tile / grid_x) * th + p / tw);
+
+  float a_f[MAXF];
+#pragma unroll
+  for (int c = 0; c < MAXF; ++c) a_f[c] = 0.f;
+  float a_dep = 0.f, a_mass = 0.f;
+  float T = 1.f, medv = MEDIAN_DEFAULT;
+  int lastc = -1, medc = -1;
+  bool done = false;
+
+  for (int r = r0; r < r1; ++r) {
+    __syncthreads();  // the previous row's records have been read
+    load_row(stream + (size_t)r * RW * C, s_row, C, p, P);
+    __syncthreads();
+    project_row(s_row, s_sc, s_scr, C, p, img_w, img_h, tile_x, tile_y, (float)th, (float)tw);
+    __syncthreads();
+    if (!done) {
+      for (int j = 0; j < RW; ++j) {
+        if (s_scr[7 * RW + j] == 0.0f) continue;
+        const float dx = s_scr[0 * RW + j] - px;
+        const float dy = s_scr[1 * RW + j] - py;
+        const float power = -0.5f * (s_scr[2 * RW + j] * dx * dx + s_scr[4 * RW + j] * dy * dy) -
+                            s_scr[3 * RW + j] * dx * dy;
+        if (power > 0.f) continue;
+        const float alpha = fminf(ALPHA_MAX, s_scr[5 * RW + j] * expf(power));
+        if (alpha < ALPHA_MIN) continue;
+        const float test_T = T * (1.f - alpha);
+        if (test_T < T_DONE) {
+          done = true;
+          break;
+        }
+        const float w = alpha * T;
+        const float* feat = s_row + j * C + 5;
+#pragma unroll
+        for (int c = 0; c < MAXF; ++c)
+          if (c < F) a_f[c] += feat[c] * w;
+        const float dep = s_scr[6 * RW + j];
+        a_dep += dep * w;
+        a_mass += w;
+        if (T > 0.5f && test_T < 0.5f) {
+          medv = dep;
+          medc = r * RW + j;
+        }
+        T = test_T;
+        lastc = r * RW + j;
+      }
+    }
+    if (__syncthreads_count(!done) == 0) break;
+  }
+
+  const size_t pix = (size_t)tile * P + p;
+  float* acc_p = acc + pix * (F + 2);
+#pragma unroll
+  for (int c = 0; c < MAXF; ++c)
+    if (c < F) acc_p[c] = a_f[c];
+  acc_p[F] = a_dep;
+  acc_p[F + 1] = a_mass;
+  ft[pix] = T;
+  med[pix] = medv;
+  last[pix] = lastc;
+  mpos[pix] = medc;
+}
+
+template <int MAXF>
+__global__ void stream_bwd_kernel(const float* __restrict__ stream, const float* __restrict__ scal,
+                                  const int* __restrict__ row_off, int R, int C, int grid_x,
+                                  int th, int tw, float img_w, float img_h,
+                                  const float* __restrict__ ft, const int* __restrict__ last,
+                                  const int* __restrict__ mpos, const float* __restrict__ gacc,
+                                  const float* __restrict__ gft, const float* __restrict__ gmed,
+                                  int sb, float* __restrict__ dtab) {
+  extern __shared__ float4 smem4[];
+  const int F = C - 5;
+  const int NR = ND + F;                           // reduced terms per pair
+  const int P = blockDim.x;
+  const int nwarps = P / 32;
+  float* s_row = reinterpret_cast<float*>(smem4);  // [RW][C]
+  float* s_scr = s_row + RW * C;                   // [NSCR][RW]
+  float* s_d = s_scr + NSCR * RW;                  // [RW][ND]
+  float* s_red = s_d + ND * RW;                    // [nwarps][sb][NR]
+  __shared__ float s_sc[NSC];
+  __shared__ int s_maxlast;
+
+  const int tile = blockIdx.x;
+  const int p = threadIdx.x;
+  const int lane = p & 31;
+  const int warp = p >> 5;
+  if (p < NSC) s_sc[p] = scal[p];
+  const int r0 = row_off[tile];
+  const float tile_x = (float)(tile % grid_x);
+  const float tile_y = (float)(tile / grid_x);
+  const float px = (float)((tile % grid_x) * tw + p % tw);
+  const float py = (float)((tile / grid_x) * th + p / tw);
+  const size_t pix = (size_t)tile * P + p;
+
+  float ga[MAXF];
+#pragma unroll
+  for (int c = 0; c < MAXF; ++c) ga[c] = (c < F) ? gacc[pix * (F + 2) + c] : 0.f;
+  const float ga_dep = gacc[pix * (F + 2) + F];
+  const float ga_mass = gacc[pix * (F + 2) + F + 1];
+  const float T_final = ft[pix];
+  const float gTT = gft[pix] * T_final;
+  const float gm = gmed[pix];
+  const int mylast = last[pix];
+  const int mymed = mpos[pix];
+
+  if (p == 0) s_maxlast = -1;
+  __syncthreads();
+  atomicMax(&s_maxlast, mylast);
+  __syncthreads();
+  const int maxl = s_maxlast;
+  if (maxl < 0) return;  // block-uniform: nothing committed in this tile
+  const int r_top = min(maxl / RW, R - 1);
+
+  float T = T_final;
+  float S = 0.f;
+  for (int r = r_top; r >= r0; --r) {
+    __syncthreads();  // the previous row's chain step has read s_row / s_d
+    load_row(stream + (size_t)r * RW * C, s_row, C, p, P);
+    __syncthreads();
+    project_row(s_row, s_sc, s_scr, C, p, img_w, img_h, tile_x, tile_y, (float)th, (float)tw);
+    __syncthreads();
+    for (int hi = RW - 1; hi >= 0; hi -= sb) {
+      const int lo = max(0, hi - sb + 1);
+      const int n = hi - lo + 1;
+      for (int jj = n - 1; jj >= 0; --jj) {
+        const int j = lo + jj;
+        const int pos = r * RW + j;
+        float gr[MAXF + ND];
+#pragma unroll
+        for (int c = 0; c < MAXF + ND; ++c) gr[c] = 0.f;
+        bool act = false;
+        if (pos <= mylast && s_scr[7 * RW + j] != 0.0f) {
+          const float ca = s_scr[2 * RW + j], cb = s_scr[3 * RW + j], cc = s_scr[4 * RW + j];
+          const float dx = s_scr[0 * RW + j] - px;
+          const float dy = s_scr[1 * RW + j] - py;
+          const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+          if (power <= 0.f) {
+            const float ep = expf(power);
+            const float alpha = fminf(ALPHA_MAX, s_scr[5 * RW + j] * ep);
+            if (alpha >= ALPHA_MIN) {
+              act = true;
+              const float* feat = s_row + j * C + 5;
+              const float dep = s_scr[6 * RW + j];
+              const float u = 1.f - alpha;
+              const float Tb = T / u;
+              float s = ga_dep * dep + ga_mass;
+#pragma unroll
+              for (int c = 0; c < MAXF; ++c)
+                if (c < F) s += ga[c] * feat[c];
+              const float w = alpha * Tb;
+              const float da = s * Tb - (S + gTT) / u;
+              S += s * w;
+              float dopa = 0.f, dpow = 0.f;
+              if (alpha < ALPHA_MAX) {
+                dopa = ep * da;
+                dpow = alpha * da;
+              }
+              gr[0] = dpow * (-(ca * dx + cb * dy));
+              gr[1] = dpow * (-(cc * dy + cb * dx));
+              gr[2] = -0.5f * dx * dx * dpow;
+              gr[3] = -dx * dy * dpow;
+              gr[4] = -0.5f * dy * dy * dpow;
+              gr[5] = dopa;
+              gr[6] = ga_dep * w + (pos == mymed ? gm : 0.f);
+#pragma unroll
+              for (int c = 0; c < MAXF; ++c)
+                if (c < F) gr[ND + c] = ga[c] * w;
+              T = Tb;
+            }
+          }
+        }
+        float* red = s_red + ((size_t)warp * sb + jj) * NR;
+        if (__any_sync(0xffffffffu, act)) {
+#pragma unroll
+          for (int c = 0; c < MAXF + ND; ++c) {
+            if (c < NR) {
+              float v = gr[c];
+#pragma unroll
+              for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+              if (lane == 0) red[c] = v;
+            }
+          }
+        } else if (lane == 0) {
+          for (int c = 0; c < NR; ++c) red[c] = 0.f;
+        }
+      }
+      __syncthreads();
+      for (int i = p; i < n * NR; i += P) {
+        float v = 0.f;
+        for (int w = 0; w < nwarps; ++w) v += s_red[(size_t)w * sb * NR + i];
+        const int j = lo + i / NR;
+        const int c = i % NR;
+        if (c < ND)
+          s_d[j * ND + c] = v;
+        else
+          dtab[((size_t)r * RW + j) * C + 5 + (c - ND)] = v;
+      }
+      __syncthreads();  // s_red is free for the next batch, s_d is complete
+    }
+
+    // chain each pair's screen-space gradient to its raw columns
+    if (p < RW) {
+      const Proj q = project_pair(s_row + p * C, s_sc, img_w, img_h, tile_x, tile_y, (float)th,
+                                  (float)tw);
+      const float* d = s_d + p * ND;
+      const float d_px = d[0], d_py = d[1], d_ca = d[2], d_cb = d[3], d_cc = d[4];
+      const float d_opa = d[5], d_dep = d[6];
+      const float A = q.cxx, B = q.cxy, Cc = q.cyy;
+      const float d2 = q.det_inv * q.det_inv;
+      const float g_A = (-Cc * Cc * d_ca + B * Cc * d_cb - B * B * d_cc) * d2;
+      const float g_B = (2.f * B * Cc * d_ca - (q.det + 2.f * B * B) * d_cb + 2.f * A * B * d_cc) * d2;
+      const float g_C = (-B * B * d_ca + A * B * d_cb - A * A * d_cc) * d2;
+      const float g_s2 = g_A * (q.j00 * q.j00 + q.j02 * q.j02) + g_B * (q.j02 * q.j12) +
+                         g_C * (q.j11 * q.j11 + q.j12 * q.j12);
+      const float g_j00 = g_A * q.s2 * 2.f * q.j00;
+      const float g_j02 = g_A * q.s2 * 2.f * q.j02 + g_B * q.s2 * q.j12;
+      const float g_j11 = g_C * q.s2 * 2.f * q.j11;
+      const float g_j12 = g_C * q.s2 * 2.f * q.j12 + g_B * q.s2 * q.j02;
+      const float fx = s_sc[24], fy = s_sc[25], limx = s_sc[26], limy = s_sc[27];
+      const float g_txc = -fx * q.inv_z * g_j02;
+      const float g_tyc = -fy * q.inv_z * g_j12;
+      float g_inv_z = fx * g_j00 + fy * g_j11 - fx * q.txc * g_j02 - fy * q.tyc * g_j12;
+      // txc = clip(mcx / z): no gradient outside the fov limits (strict)
+      const bool in_x = fabsf(q.mcx * q.inv_z) < limx;
+      const bool in_y = fabsf(q.mcy * q.inv_z) < limy;
+      float g_mcx = in_x ? q.inv_z * g_txc : 0.f;
+      float g_mcy = in_y ? q.inv_z * g_tyc : 0.f;
+      g_inv_z = g_inv_z + ((in_x ? q.mcx * g_txc : 0.f) + (in_y ? q.mcy * g_tyc : 0.f));
+      float g_mcz = -q.inv_z * q.inv_z * g_inv_z;
+      const float W2 = img_w * 0.5f, H2 = img_h * 0.5f;
+      const float g_phx = d_px * W2 * q.p_w;
+      const float g_phy = d_py * H2 * q.p_w;
+      const float g_pw = d_px * W2 * q.ph_x + d_py * H2 * q.ph_y;
+      const float g_phw = -g_pw * q.p_w * q.p_w;
+      g_mcx = g_mcx + s_sc[12] * g_phx + s_sc[16] * g_phy + s_sc[20] * g_phw;
+      g_mcy = g_mcy + s_sc[13] * g_phx + s_sc[17] * g_phy + s_sc[21] * g_phw;
+      g_mcz = g_mcz + s_sc[14] * g_phx + s_sc[18] * g_phy + s_sc[22] * g_phw;
+      g_mcz = g_mcz + d_dep;
+      float* out = dtab + ((size_t)r * RW + p) * C;
+      out[0] = s_sc[0] * g_mcx + s_sc[3] * g_mcy + s_sc[6] * g_mcz;
+      out[1] = s_sc[1] * g_mcx + s_sc[4] * g_mcy + s_sc[7] * g_mcz;
+      out[2] = s_sc[2] * g_mcx + s_sc[5] * g_mcy + s_sc[8] * g_mcz;
+      out[3] = 2.f * q.s2 * g_s2;
+      out[4] = d_opa * q.opa * (1.f - q.opa);
+    }
+  }
+}
+
+template <int MAXF>
+static cudaError_t launch_fwd(const float* stream, const float* sc, const int* row_off, int T,
+                              int R, int C, int grid_x, int th, int tw, float img_w,
+                              float img_h, float* acc, float* ft, float* med, int* last,
+                              int* mpos, cudaStream_t s) {
+  const size_t shmem = (size_t)(RW * C + NSCR * RW) * sizeof(float);
+  stream_fwd_kernel<MAXF><<<T, th * tw, shmem, s>>>(stream, sc, row_off, R, C, grid_x, th, tw,
+                                                    img_w, img_h, acc, ft, med, last, mpos);
+  return cudaGetLastError();
+}
+
+template <int MAXF>
+static cudaError_t launch_bwd(const float* stream, const float* sc, const int* row_off,
+                              const float* ft, const int* last, const int* mpos,
+                              const float* gacc, const float* gft, const float* gmed, int T,
+                              int R, int C, int grid_x, int th, int tw, float img_w,
+                              float img_h, int sb, float* dtab, cudaStream_t s) {
+  const int P = th * tw;
+  const size_t shmem =
+      (size_t)(RW * C + NSCR * RW + ND * RW + (P / 32) * sb * (ND + C - 5)) * sizeof(float);
+  stream_bwd_kernel<MAXF><<<T, P, shmem, s>>>(stream, sc, row_off, R, C, grid_x, th, tw, img_w,
+                                              img_h, ft, last, mpos, gacc, gft, gmed, sb, dtab);
+  return cudaGetLastError();
+}
+
+extern "C" {
+
+// Largest feature count the kernels take (F = C - 5): 3 (colour) and 29
+// (colour and 26 semantic channels) are what the configs carry.
+int stream_max_features() { return 32; }
+
+// Shared memory (bytes) of one K4 block for C columns, P pixels, batch sb.
+int stream_bwd_smem(int C, int P, int sb) {
+  return (RW * C + NSCR * RW + ND * RW + (P / 32) * sb * (ND + C - 5)) * (int)sizeof(float);
+}
+
+int stream_fwd(const float* stream, const float* sc, const int* row_off, int T, int R, int C,
+               int grid_x, int th, int tw, float img_w, float img_h, float* acc, float* ft,
+               float* med, int* last, int* mpos, void* cu_stream) {
+  const int F = C - 5;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(cu_stream);
+  if (F >= 0 && F <= 4)
+    return launch_fwd<4>(stream, sc, row_off, T, R, C, grid_x, th, tw, img_w, img_h, acc, ft,
+                         med, last, mpos, s);
+  if (F >= 0 && F <= 32)
+    return launch_fwd<32>(stream, sc, row_off, T, R, C, grid_x, th, tw, img_w, img_h, acc, ft,
+                          med, last, mpos, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int stream_bwd(const float* stream, const float* sc, const int* row_off, const float* ft,
+               const int* last, const int* mpos, const float* gacc, const float* gft,
+               const float* gmed, int T, int R, int C, int grid_x, int th, int tw, float img_w,
+               float img_h, int sb, float* dtab, void* cu_stream) {
+  const int F = C - 5;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(cu_stream);
+  if (F >= 0 && F <= 4)
+    return launch_bwd<4>(stream, sc, row_off, ft, last, mpos, gacc, gft, gmed, T, R, C, grid_x,
+                         th, tw, img_w, img_h, sb, dtab, s);
+  if (F >= 0 && F <= 32)
+    return launch_bwd<32>(stream, sc, row_off, ft, last, mpos, gacc, gft, gmed, T, R, C, grid_x,
+                          th, tw, img_w, img_h, sb, dtab, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -1,4 +1,4 @@
-"""Tile binning (port of ``hierslam_tpu/ops/binning.py``: ``bin_bucketed``).
+"""Tile binning (port of ``hierslam_tpu/ops/binning.py``: ``bin_bucketed``, ``bin_stream``).
 
 Every Gaussian emits one (tile, depth) pair per tile its screen rect
 covers, with the JAX package's budgeted prefix emission (Gaussians sorted
@@ -13,7 +13,9 @@ With ``sat_margin > 0`` each pair carries quantized per-quadrant lower
 bounds of its alpha over the tile; four global cumsums of ``log1p(-alpha)``
 then give each tile's provable saturation rank ``k_need`` and the
 per-tile need ``k_eff = min(count, max(sat_floor, ceil(margin * k_need)))``.
-Tiles are ranked by need into the capacity classes of ``bucket_spec``.
+Tiles are ranked by need into the capacity classes of ``bucket_spec``
+(``bin_bucketed``) or granted rows of one ragged pair stream by a
+waterfill under a global row budget (``bin_stream``).
 """
 from __future__ import annotations
 
@@ -293,6 +295,111 @@ def bin_bucketed(
         k_eff=k_eff,
         n_refs=n_refs,
         n_dropped=n_class_dropped + sp.n_dropped_pre,
+        n_sat_masked=sp.n_sat_masked,
+        vis_ids=vis_ids,
+        rank_of=rank_of,
+    )
+
+
+class StreamLists(NamedTuple):
+    """Ragged depth-ordered pair stream in ``rw``-pair rows.
+
+    Tile ``t`` owns rows ``row_off[t]..row_off[t+1]``: ``ceil(k_alloc/rw)``
+    of them, its saturation-bounded need ``k_eff`` (capped at ``k_cap``)
+    granted under a global row budget by waterfilling.  ``idx`` holds the
+    ``n_rows`` used rows only (the JAX package pads it to the budget for a
+    static shape); pad slots hold the sentinel index (``n``, or the visible
+    budget under compaction), the row the caller appends to its table."""
+
+    idx: torch.Tensor          # [n_rows, rw] int64, sentinel-padded
+    row_off: torch.Tensor      # [T+1] int32 row offsets per tile
+    count: torch.Tensor        # [T] true overlap counts
+    k_eff: torch.Tensor        # [T] saturation-bounded need
+    k_alloc: torch.Tensor      # [T] granted slots
+    n_refs: torch.Tensor       # [] kept (non-pad) pairs
+    n_rows: torch.Tensor       # [] used rows (<= the budget)
+    n_dropped: torch.Tensor    # [] real pairs lost (budget, caps, emission)
+    n_sat_masked: torch.Tensor
+    vis_ids: Optional[torch.Tensor] = None
+    rank_of: Optional[torch.Tensor] = None
+
+
+def bin_stream(
+    rect_min: torch.Tensor,
+    rect_max: torch.Tensor,
+    valid: torch.Tensor,
+    depth: torch.Tensor,
+    grid: Tuple[int, int],
+    tile_shape: Tuple[int, int],
+    stream_rows: int,
+    k_cap: int = 4096,
+    rw: int = 128,
+    max_tiles_per_gaussian: int = 16,
+    emission_budgets: Optional[Sequence[int]] = None,
+    sat_margin: float = 0.0,
+    sat_floor: int = 64,
+    xy: Optional[torch.Tensor] = None,
+    conic: Optional[torch.Tensor] = None,
+    opacity: Optional[torch.Tensor] = None,
+    visible_budget: int = 0,
+) -> StreamLists:
+    """The ragged pair stream (see :class:`StreamLists`).  The waterfill
+    takes the largest row ceiling ``j*`` in ``0..k_cap/rw`` whose total
+    fits ``stream_rows``, then hands the leftover rows, one each, to the
+    tiles with the largest unmet need (ties in tile order; the JAX
+    package's unstable argsort may break them otherwise)."""
+    num_tiles = grid[0] * grid[1]
+    n = depth.shape[0]
+    if k_cap % rw:
+        raise ValueError(f"stream_cap {k_cap} must be a multiple of {rw}")
+    sp = _emit_sort_sat(
+        rect_min, rect_max, valid, depth, grid, tile_shape,
+        max_tiles_per_gaussian, emission_budgets, sat_margin, sat_floor,
+        xy, conic, opacity, visible_budget,
+    )
+    counts, k_eff, starts = sp.counts, sp.k_eff, sp.starts
+    dev = depth.device
+    m = sp.s_gauss.shape[0]
+
+    rows_need = -(-k_eff.clamp_max(k_cap) // rw)                        # [T]
+    ceil_j = torch.arange(k_cap // rw + 1, device=dev)
+    fill = torch.minimum(rows_need[None, :], ceil_j[:, None]).sum(1)    # [mrt+1]
+    j_star = (fill <= stream_rows).sum() - 1
+    rows_alloc = torch.minimum(rows_need, j_star)
+    leftover = stream_rows - rows_alloc.sum()
+    unmet = rows_need - rows_alloc
+    order = torch.sort(-unmet, stable=True).indices
+    extra = (torch.arange(num_tiles, device=dev) < leftover) & (unmet[order] > 0)
+    rows_alloc = rows_alloc.clone()
+    rows_alloc[order] += extra.long()
+    k_alloc = torch.minimum(rows_alloc * rw, k_eff.clamp_max(k_cap))
+    row_off = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(rows_alloc, 0)])
+    n_rows = row_off[-1]
+
+    nr = int(n_rows)
+    r_ids = torch.arange(nr, device=dev)
+    tile_of_row = torch.searchsorted(row_off[1:], r_ids, right=True)
+    base = (r_ids - row_off[tile_of_row]) * rw                          # [R]
+    kept = torch.minimum(k_alloc, counts)
+    lane = torch.arange(rw, device=dev)
+    take = starts[tile_of_row][:, None] + base[:, None] + lane[None, :]
+    ok = base[:, None] + lane[None, :] < kept[tile_of_row][:, None]
+    sentinel = sp.v_budget if sp.v_budget else n
+    s_gauss_pad = torch.cat([sp.s_gauss, torch.full((1,), sentinel, dtype=torch.int64,
+                                                    device=dev)])
+    idx = torch.where(ok, s_gauss_pad[take.clamp_max(m)], torch.full_like(take, sentinel))
+
+    vis_ids, rank_of = _vis_fields(sp, n)
+    return StreamLists(
+        idx=idx,
+        row_off=row_off.to(torch.int32),
+        count=counts,
+        k_eff=k_eff,
+        k_alloc=k_alloc,
+        n_refs=kept.sum(),
+        n_rows=n_rows,
+        n_dropped=sp.n_dropped_pre + (torch.minimum(k_eff, counts) - kept).clamp_min(0).sum(),
         n_sat_masked=sp.n_sat_masked,
         vis_ids=vis_ids,
         rank_of=rank_of,

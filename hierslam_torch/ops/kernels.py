@@ -1,13 +1,14 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled at first use with ``nvcc`` into a shared library
-with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``) and
-loaded with ``ctypes``.  The library name carries a hash of the sources,
-so an edited kernel is rebuilt.  Nothing here runs at import time.
+Each source is compiled at first use with ``nvcc`` into a shared library
+of its own with a plain C interface (``-gencode arch=compute_90a,code=
+sm_90a``), all sources at once in parallel, and loaded with ``ctypes``.
+A library's name carries a hash of its source and flags, so an edited
+kernel is rebuilt.  Nothing here runs at import time.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on PyTorch's current stream, raises
-on a launch error, and adds one to its entry of :data:`launch_counts`.
+outputs, launches on PyTorch's current stream, raises on a launch error,
+and adds one to its entry of :data:`launch_counts`.
 """
 from __future__ import annotations
 
@@ -16,23 +17,27 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("blend.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# source -> extra flags.  stream.cu keeps multiplies and adds apart so that
+# its discrete decisions round as the plain PyTorch version does (see there).
+SOURCES = {"blend.cu": (), "stream.cu": ("-fmad=false",)}
 SMEM_BUDGET = 46 * 1024   # dynamic shared memory per block, under the 48 KB default
+RW = 128                  # pairs per stream row
 
 # kernel launches since the last reset (one per launch, nowhere else)
-launch_counts = {"blend_fwd": 0, "blend_bwd": 0}
+launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0}
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def reset_launch_counts() -> None:
@@ -51,48 +56,70 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> str:
+def library_path(source: str) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libhierslam_kernels_{h.hexdigest()[:16]}.so")
+    with open(os.path.join(CSRC, source), "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS + SOURCES[source]).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"libhierslam_{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernels if the library for these sources is missing.
-    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills) and
-    prints the compiler's output.  Returns the library path."""
-    path = library_path()
-    if os.path.isfile(path):
-        return path
+def build(verbose: bool = False) -> Dict[str, str]:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    all started together.  ``verbose`` adds ``-Xptxas -v`` (registers,
+    shared memory, spills) and prints the compiler's output.  Returns the
+    library path of each source."""
+    paths = {src: library_path(src) for src in SOURCES}
+    todo = {src: p for src, p in paths.items() if not os.path.isfile(p)}
+    if not todo:
+        return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *[os.path.join(CSRC, s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or res.returncode != 0:
-        print(res.stdout + res.stderr, flush=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
-    os.replace(tmp, path)
-    return path
+    nvcc = _nvcc()
+    procs = {}
+    for src, path in todo.items():
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCES[src], *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, os.path.join(CSRC, src)]
+        procs[src] = (cmd, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for src, (cmd, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if verbose or proc.returncode != 0:
+            print(f"[nvcc {src}]\n{out}", flush=True)
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}): {' '.join(cmd)}")
+        else:
+            os.replace(tmp, todo[src])
+    if failed:
+        raise RuntimeError("nvcc failed: " + "; ".join(failed))
+    return paths
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        lib.blend_fwd.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
-        lib.blend_fwd.restype = _I
-        lib.blend_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _I, _P, _P]
-        lib.blend_bwd.restype = _I
-        lib.blend_max_features.argtypes = []
-        lib.blend_max_features.restype = _I
-        _lib = lib
-    return _lib
+def _load(source: str) -> ctypes.CDLL:
+    if source not in _libs:
+        lib = ctypes.CDLL(build()[source])
+        if source == "blend.cu":
+            lib.blend_fwd.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                      _P]
+            lib.blend_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _I, _P, _P]
+            lib.blend_max_features.argtypes = []
+            for fn in (lib.blend_fwd, lib.blend_bwd, lib.blend_max_features):
+                fn.restype = _I
+        else:
+            lib.stream_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
+                                       _P, _P, _P]
+            lib.stream_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _F, _F, _I, _P, _P]
+            lib.stream_max_features.argtypes = []
+            lib.stream_bwd_smem.argtypes = [_I, _I, _I]
+            for fn in (lib.stream_fwd, lib.stream_bwd, lib.stream_max_features,
+                       lib.stream_bwd_smem):
+                fn.restype = _I
+        _libs[source] = lib
+    return _libs[source]
 
 
 def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
@@ -113,9 +140,9 @@ def _tile_args(table: torch.Tensor, tile_shape):
     if P % 32 or P > 1024:
         raise ValueError(f"tile of {P} pixels: need a multiple of 32, at most 1024")
     T, K, C = table.shape
-    if C < 7 or C - 7 > _load().blend_max_features():
+    if C < 7 or C - 7 > _load("blend.cu").blend_max_features():
         raise ValueError(f"table width {C}: need 7 + F columns, F <= "
-                         f"{_load().blend_max_features()}")
+                         f"{_load('blend.cu').blend_max_features()}")
     return T, K, C, th, tw, P
 
 
@@ -142,7 +169,7 @@ def blend_fwd(table: torch.Tensor, ok: torch.Tensor, grid_x: int, tile_shape):
         return acc, ft, med, last, mslot
     nb = min(256, SMEM_BUDGET // (C * 4 + 1))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _load().blend_fwd(
+    err = _load("blend.cu").blend_fwd(
         table.data_ptr(), ok.data_ptr(), T, K, C, grid_x, th, tw, nb,
         acc.data_ptr(), ft.data_ptr(), med.data_ptr(), last.data_ptr(), mslot.data_ptr(),
         stream,
@@ -173,11 +200,96 @@ def blend_bwd(table, ok, ft, last, mslot, gacc, gft, gmed, grid_x: int, tile_sha
     if sb < 1:
         raise ValueError(f"table width {C} leaves no room for the reduction")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _load().blend_bwd(
+    err = _load("blend.cu").blend_bwd(
         table.data_ptr(), ok.data_ptr(), ft.data_ptr(), last.data_ptr(), mslot.data_ptr(),
         gacc.data_ptr(), gft.data_ptr(), gmed.data_ptr(), T, K, C, grid_x, th,
         tw, sb, dtab.data_ptr(), stream,
     )
     _raise_on(err, "blend_bwd")
     launch_counts["blend_bwd"] += 1
+    return dtab
+
+
+def _stream_args(stream: torch.Tensor, scalars: torch.Tensor, row_off: torch.Tensor,
+                 n_feat: int, tile_shape):
+    if stream.device.type != "cuda":
+        raise ValueError("the CUDA stream kernels take CUDA tensors only")
+    th, tw = tile_shape
+    P = th * tw
+    if P % 32 or P < RW or P > 1024:
+        raise ValueError(f"tile of {P} pixels: need a multiple of 32 in [{RW}, 1024]")
+    max_f = _load("stream.cu").stream_max_features()
+    if not 0 <= n_feat <= max_f:
+        raise ValueError(f"{n_feat} features: the stream kernels take at most {max_f}")
+    C = 5 + n_feat
+    R = stream.shape[0]
+    T = row_off.shape[0] - 1
+    dev = stream.device
+    _check("stream", stream, torch.float32, (R, RW, C), dev)
+    _check("scalars", scalars, torch.float32, (28,), dev)
+    _check("row_off", row_off, torch.int32, (T + 1,), dev)
+    return T, R, C, th, tw, P
+
+
+def stream_fwd(stream: torch.Tensor, scalars: torch.Tensor, row_off: torch.Tensor,
+               grid_x: int, tile_shape, n_feat: int, img_shape):
+    """K3.  stream [R, 128, 5+F] f32 (tile t owns rows row_off[t]..
+    row_off[t+1]), scalars [28] f32 (``render_stream.make_scalars``),
+    row_off [T+1] int32, img_shape (projection height, width) ->
+    (acc [T, P, F+2], final_T [T, P], median [T, P], stream position of
+    each pixel's last committed pair [T, P] int32, and of its median
+    crossing, -1 where none)."""
+    T, R, C, th, tw, P = _stream_args(stream, scalars, row_off, n_feat, tile_shape)
+    dev = stream.device
+    F = n_feat
+    acc = torch.empty((T, P, F + 2), dtype=torch.float32, device=dev)
+    ft = torch.empty((T, P), dtype=torch.float32, device=dev)
+    med = torch.empty((T, P), dtype=torch.float32, device=dev)
+    last = torch.empty((T, P), dtype=torch.int32, device=dev)
+    mpos = torch.empty((T, P), dtype=torch.int32, device=dev)
+    if T == 0:
+        return acc, ft, med, last, mpos
+    img_h, img_w = img_shape
+    err = _load("stream.cu").stream_fwd(
+        stream.data_ptr(), scalars.data_ptr(), row_off.data_ptr(), T, R, C, grid_x, th, tw,
+        float(img_w), float(img_h), acc.data_ptr(), ft.data_ptr(), med.data_ptr(),
+        last.data_ptr(), mpos.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "stream_fwd")
+    launch_counts["stream_fwd"] += 1
+    return acc, ft, med, last, mpos
+
+
+def stream_bwd(stream, scalars, row_off, ft, last, mpos, gacc, gft, gmed, grid_x: int,
+               tile_shape, n_feat: int, img_shape):
+    """K4.  Residuals (final_T, last, mpos) from :func:`stream_fwd`,
+    cotangents gacc [T, P, F+2], gft / gmed [T, P] -> d stream
+    [R, 128, 5+F], exactly 0 on pad pairs and on rows no tile reads."""
+    T, R, C, th, tw, P = _stream_args(stream, scalars, row_off, n_feat, tile_shape)
+    dev = stream.device
+    F = n_feat
+    _check("ft", ft, torch.float32, (T, P), dev)
+    _check("last", last, torch.int32, (T, P), dev)
+    _check("mpos", mpos, torch.int32, (T, P), dev)
+    _check("gacc", gacc, torch.float32, (T, P, F + 2), dev)
+    _check("gft", gft, torch.float32, (T, P), dev)
+    _check("gmed", gmed, torch.float32, (T, P), dev)
+    dtab = torch.zeros((R, RW, C), dtype=torch.float32, device=dev)
+    if T == 0 or R == 0:
+        return dtab
+    lib = _load("stream.cu")
+    sb = 32
+    while sb > 1 and lib.stream_bwd_smem(C, P, sb) > SMEM_BUDGET:
+        sb -= 1
+    if lib.stream_bwd_smem(C, P, sb) > SMEM_BUDGET:
+        raise ValueError(f"stream width {C} leaves no room for the reduction")
+    img_h, img_w = img_shape
+    err = lib.stream_bwd(
+        stream.data_ptr(), scalars.data_ptr(), row_off.data_ptr(), ft.data_ptr(),
+        last.data_ptr(), mpos.data_ptr(), gacc.data_ptr(), gft.data_ptr(), gmed.data_ptr(),
+        T, R, C, grid_x, th, tw, float(img_w), float(img_h), sb, dtab.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "stream_bwd")
+    launch_counts["stream_bwd"] += 1
     return dtab

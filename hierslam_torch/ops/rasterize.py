@@ -31,8 +31,10 @@ class RasterConfig:
     ``pallas_interpret`` shape the TPU kernels and scans only: they are
     accepted and ignored.  ``backend`` "pallas" and "xla" both name the
     ladder blend (kernels K1/K2 on CUDA tensors, their plain versions on
-    CPU tensors); "stream" and its ``stream_rows``/``stream_cap`` belong to
-    the stream mapper, which the port does not have yet."""
+    CPU tensors); "stream" makes the mapper render through the ragged pair
+    stream (``ops/render_stream.py``, kernels K3/K4), with ``stream_rows``
+    128-pair rows in all and at most ``stream_cap`` pairs a tile, while
+    tracking and densify keep the ladder blend."""
 
     tile_shape: Tuple[int, int] = (16, 16)
     max_per_tile: int = 1024
@@ -61,6 +63,13 @@ class RasterConfig:
     def __post_init__(self):
         if self.backend not in ("pallas", "xla", "stream"):
             raise ValueError(f"unknown blend backend {self.backend!r}")
+
+    def stream_rows_for(self, grid: Tuple[int, int]) -> int:
+        """The stream's row budget: ``stream_rows``, or every tile at
+        ``stream_cap`` when it is 0 (exact, for tests and small scenes)."""
+        if self.stream_rows:
+            return self.stream_rows
+        return grid[0] * grid[1] * (self.stream_cap // 128)
 
     @property
     def esc_k(self) -> int:

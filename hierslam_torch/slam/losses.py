@@ -1,5 +1,7 @@
 """Tracking / mapping losses (port of ``hierslam_tpu/slam/losses.py``).
 
+* rendering: ``render_gaussians`` (ladder, or the pair stream for a
+  stream binning) and ``render_packed_stream`` (the packed mapper's table);
 * tracking: silhouette-gated **sum** losses, depth ``|d - d_hat|`` and RGB
   over the mask, no semantic term;
 * mapping: depth masked **mean**, RGB ``0.8 L1 + 0.2 (1 - SSIM)``, semantic
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from hierslam_torch.core import transforms
+from hierslam_torch.ops import render_stream as rs
 from hierslam_torch.ops.gather_vjp import compact_rows
 from hierslam_torch.ops.rasterize import RasterConfig, RenderOutput, rasterize
 from hierslam_torch.ops.ssim import calc_ssim
@@ -73,6 +76,37 @@ def mlp_init(num_semantic: int, num_leaf: int, generator: Optional[torch.Generat
     return {"w": u((num_leaf, num_semantic)), "b": u((num_leaf,))}
 
 
+def render_packed_stream(table: torch.Tensor, active, binning_cache: rs.StreamBinning,
+                         cam_quat, cam_trans, camera, raster_cfg: RasterConfig,
+                         n_feat: int) -> RenderOutput:
+    """Streamed render straight from a packed ``[N, 5+F]`` table (stream
+    columns, ``ops/render_stream.py``), the packed mapper's optimization
+    variable.  ``active`` (or None when the sentinel logit already marks the
+    removed rows) sets the sentinel logit on inactive rows.  Differentiable
+    in ``table``; the pose gets no gradient.  ``radii`` are zeros: the
+    stream computes none."""
+    lists = binning_cache.lists
+    act = active
+    if lists.vis_ids is not None:
+        table = compact_rows(table, lists.vis_ids)
+        act = active[lists.vis_ids] if active is not None else None
+    if act is not None:
+        table = rs.set_logit(table, ~act, rs.SENTINEL_LOGIT)
+    w2c = transforms.build_w2c(transforms.normalize(cam_quat.detach()), cam_trans.detach())
+    ch, ft, med = rs.render_from_table(table, binning_cache, w2c, camera, raster_cfg, n_feat)
+    sem_w = n_feat - 3
+    dev = table.device
+    return RenderOutput(
+        im=ch[:3], radii=torch.zeros((table.shape[0],), dtype=torch.int32, device=dev),
+        depth=ch[-2], median_depth=med, final_opacity=1.0 - ft, mask=ch[-1],
+        semantic=ch[3:3 + sem_w] if sem_w else None, n_dropped=lists.n_dropped,
+        tile_count=lists.count,
+        n_grad_dropped=((lists.n_refs - raster_cfg.grad_pair_budget).clamp_min(0)
+                        if raster_cfg.grad_pair_budget
+                        else torch.zeros((), dtype=torch.int64, device=dev)),
+    )
+
+
 def render_gaussians(params: Params, active, cam_quat, cam_trans, camera,
                      raster_cfg: RasterConfig, *, with_semantic: bool,
                      gaussians_grad: bool, camera_grad: bool,
@@ -80,7 +114,20 @@ def render_gaussians(params: Params, active, cam_quat, cam_trans, camera,
     """transform_to_frame + activations (sigmoid opacity, exp scale, raw
     semantic logits) + rasterize.  A visible-rank binning cache first
     compacts the parameters to its ``[V]`` prefix, so per-gaussian work
-    scales with V; ``radii`` are then in compact space."""
+    scales with V; ``radii`` are then in compact space.  A
+    :class:`~hierslam_torch.ops.render_stream.StreamBinning` cache renders
+    through the pair stream instead (isotropic maps, no pose gradient)."""
+    if isinstance(binning_cache, rs.StreamBinning):
+        if params["log_scales"].shape[1] != 1:
+            raise NotImplementedError("stream backend supports isotropic maps only")
+        if camera_grad:
+            raise NotImplementedError(
+                "stream backend does not provide camera gradients; "
+                "tracking uses the render_tracked path")
+        gp = params if gaussians_grad else {k: v.detach() for k, v in params.items()}
+        sem_w = gp["semantic"].shape[1] if with_semantic and "semantic" in gp else 0
+        return render_packed_stream(rs.pack_table(gp, sem_w), active, binning_cache, cam_quat,
+                                    cam_trans, camera, raster_cfg, 3 + sem_w)
     vis = getattr(getattr(binning_cache, "lists", None), "vis_ids", None)
     if vis is not None:
         keys = ["means3D", "unnorm_rotations", "rgb_colors", "logit_opacities", "log_scales"]

@@ -2,14 +2,21 @@
 
 * ``make_densifier``: the silhouette / depth-error non-presence render (one
   uniform class at the densify K) back-projected into free capacity slots;
-* ``make_mapper``: the ladder (``backend="pallas"``/``"xla"``) mapping phase
-  — one amortized binning per window frame with a 4 px rect margin, then
-  per iteration: render a random window frame, mapping loss, prune
-  (reference order: backward -> prune -> step), a fresh eps=1e-15 Adam on
-  the Gaussians and the persistent eps=1e-8 Adam of the semantic decoder.
+* ``make_mapper``: the mapping phase — one amortized binning per window
+  frame with a 4 px rect margin at the phase-start params, then per
+  iteration: render a random window frame, mapping loss, prune (reference
+  order: backward -> prune -> step), a fresh eps=1e-15 Adam on the
+  Gaussians and the persistent eps=1e-8 Adam of the semantic decoder.
+  With ``backend="pallas"``/``"xla"`` it renders through the ladder
+  (``ops/rasterize.py``, K1/K2) with the parameter dict as the Adam
+  variable.  With ``backend="stream"`` (the flagship's) the Adam variable
+  is one packed ``[N, 5+F]`` stream table (means, log scale, opacity
+  logit, rgb, semantic) with a per-column lr, rendered through the pair
+  stream (``ops/render_stream.py``, K3/K4) from full-N binnings; removed
+  and inactive rows carry the sentinel opacity logit, and rotations, which
+  an isotropic stream render does not read, stay as they are.
 
-The packed stream mapper (``backend="stream"``) and classic clone/split
-densification are not ported yet (ROADMAP.md, queue 1).
+Classic clone/split densification is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -22,10 +29,12 @@ import torch
 from hierslam_torch import resolve_device
 from hierslam_torch.core import gaussians as G
 from hierslam_torch.core import transforms
+from hierslam_torch.ops import render_stream as rs
 from hierslam_torch.ops.rasterize import RasterConfig, compute_binning
 from hierslam_torch.ops.ssim import ssim_ref_stats
 from hierslam_torch.slam import optim
-from hierslam_torch.slam.losses import LossConfig, lower_median, mapping_loss, render_gaussians
+from hierslam_torch.slam.losses import (LossConfig, lower_median, mapping_loss, render_gaussians,
+                                        render_packed_stream)
 
 Params = Dict[str, torch.Tensor]
 
@@ -91,21 +100,37 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
     time_idx [W]; ``rand_idx`` [num_iters] host ints into the window.
     ``losses`` holds one [num_iters] device tensor per loss term."""
     dev = resolve_device(device)
-    if raster_cfg.backend == "stream":
-        raise NotImplementedError(
-            "the packed stream mapper (K3/K4) is the next slice of the port "
-            "(ROADMAP.md, queue 1); use raster.backend='pallas'"
-        )
     with_sem = bool(loss_cfg.sem_levels)
-    compacted = raster_cfg.visible_budget > 0
+    packed = raster_cfg.backend == "stream"
+    # the stream mapper bins full-N: its costs scale with the pair stream,
+    # and a visible budget would only truncate rendering
+    compacted = raster_cfg.visible_budget > 0 and not packed
+    bin_fn = rs.compute_stream_binning if packed else compute_binning
 
     def map_phase(params, variables, window, rand_idx, mlp, mlp_state):
         if params["means3D"].device != dev:
             raise ValueError(f"mapper built for {dev}, params on {params['means3D'].device}")
-        gauss_keys = [k for k in G.GAUSSIAN_KEYS if k in params]
-        gp = {k: params[k] for k in gauss_keys}
-        opt = optim.adam_init(gp)
         variables = dict(variables)
+        if packed:
+            if params["log_scales"].shape[1] != 1:
+                raise NotImplementedError("stream backend supports isotropic maps only")
+            sem_w = params["semantic"].shape[1] if with_sem and "semantic" in params else 0
+            # inactive slots carry the sentinel logit: they blend to nothing
+            # and route no gradient; a prune writes the same (rows are not
+            # reused within a phase, so this is the reference's row removal)
+            gp = {"table": rs.set_logit(rs.pack_table(params, sem_w).detach(),
+                                        ~variables["active"], rs.SENTINEL_LOGIT)}
+            lr_vec = np.zeros(gp["table"].shape[1], np.float32)
+            lr_vec[rs.COL_MEAN:rs.COL_MEAN + 3] = lrs.get("means3D", 0.0)
+            lr_vec[rs.COL_LOGS] = lrs.get("log_scales", 0.0)
+            lr_vec[rs.COL_LOGIT] = lrs.get("logit_opacities", 0.0)
+            lr_vec[rs.COL_FEAT:rs.COL_FEAT + 3] = lrs.get("rgb_colors", 0.0)
+            lr_vec[rs.COL_FEAT + 3:] = lrs.get("semantic", 0.0)
+            phase_lrs = {"table": torch.as_tensor(lr_vec, device=dev)}
+        else:
+            gp = {k: params[k] for k in G.GAUSSIAN_KEYS if k in params}
+            phase_lrs = lrs
+        opt = optim.adam_init(gp)
         tidx = window["time_idx"].long()
         wq = params["cam_unnorm_rots"][0].T[tidx]
         wt = params["cam_trans"][0].T[tidx]
@@ -114,15 +139,15 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
 
         # amortized binning, one per window frame, at the phase-start params
         with torch.no_grad():
-            scales0 = torch.exp(gp["log_scales"])
-            opac0 = torch.sigmoid(gp["logit_opacities"])
+            scales0 = torch.exp(params["log_scales"])
+            opac0 = torch.sigmoid(params["logit_opacities"])
             binnings = []
             for i in range(n_win):
                 means_cam, _ = transforms.transform_to_frame(
-                    gp["means3D"], gp["unnorm_rotations"], wq[i], wt[i],
+                    params["means3D"], params["unnorm_rotations"], wq[i], wt[i],
                     gaussians_grad=False, camera_grad=False)
-                binnings.append(compute_binning(
-                    means_cam, scales0, gp["unnorm_rotations"], camera, raster_cfg,
+                binnings.append(bin_fn(
+                    means_cam, scales0, params["unnorm_rotations"], camera, raster_cfg,
                     active=variables["active"], margin_px=bin_margin_px,
                     opacities=opac0, compact=compacted))
 
@@ -134,11 +159,15 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
             leaves = {n: v.detach().requires_grad_(True) for n, v in gp.items()}
             mlp_l = ({n: v.detach().requires_grad_(True) for n, v in mlp.items()}
                      if wants_mlp else None)
-            full = dict(params)
-            full.update(leaves)
-            out = render_gaussians(full, variables["active"], wq[k], wt[k], camera,
-                                   raster_cfg, with_semantic=with_sem, gaussians_grad=True,
-                                   camera_grad=False, binning_cache=binnings[k])
+            if packed:
+                out = render_packed_stream(leaves["table"], None, binnings[k], wq[k], wt[k],
+                                           camera, raster_cfg, 3 + sem_w)
+            else:
+                full = dict(params)
+                full.update(leaves)
+                out = render_gaussians(full, variables["active"], wq[k], wt[k], camera,
+                                       raster_cfg, with_semantic=with_sem, gaussians_grad=True,
+                                       camera_grad=False, binning_cache=binnings[k])
             loss, parts = mapping_loss(out, window["im"][k], window["depth"][k], labels,
                                        mlp_l, it, loss_cfg, gt_ssim=w_ssim[k])
             inputs = list(leaves.values()) + (list(mlp_l.values()) if wants_mlp else [])
@@ -153,26 +182,41 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
                 thresh = (prune_cfg.final_removal_opacity_threshold
                           if it == prune_cfg.stop_after
                           else prune_cfg.removal_opacity_threshold)
-                small = torch.sigmoid(gp["logit_opacities"][:, 0]) < thresh
-                removed = variables["active"] & small
+                if packed:
+                    logit, log_scale = gp["table"][:, rs.COL_LOGIT], gp["table"][:, rs.COL_LOGS]
+                else:
+                    logit, log_scale = gp["logit_opacities"][:, 0], gp["log_scales"].amax(1)
+                active = variables["active"]
+                removed = active & (torch.sigmoid(logit) < thresh)
                 if it >= prune_cfg.remove_big_after:
-                    big = torch.exp(gp["log_scales"].amax(1)) > 0.1 * variables["scene_radius"]
-                    removed = removed | (variables["active"] & big)
-                variables["active"] = variables["active"] & ~removed
+                    big = torch.exp(log_scale) > 0.1 * variables["scene_radius"]
+                    removed = removed | (active & big)
+                variables["active"] = active & ~removed
                 opt = optim.zero_moment_rows(opt, removed)
+                if packed:
+                    gp = {"table": rs.set_logit(gp["table"], removed, rs.SENTINEL_LOGIT)}
             if (prune_cfg.reset_opacities and it > 0
                     and it % prune_cfg.reset_opacities_every == 0
                     and it <= prune_cfg.stop_after):
-                gp = dict(gp)
-                gp["logit_opacities"] = torch.full_like(
-                    gp["logit_opacities"], float(np.log(0.01 / 0.99)))
-                opt = optim.zero_moments_for_key(opt, "logit_opacities")
+                reset = float(np.log(0.01 / 0.99))
+                if packed:
+                    # active rows only: a removed row keeps its sentinel
+                    gp = {"table": rs.set_logit(gp["table"], variables["active"], reset)}
+                    every = torch.ones_like(variables["active"])
+                    opt = optim.AdamState(
+                        mu={"table": rs.set_logit(opt.mu["table"], every, 0.0)},
+                        nu={"table": rs.set_logit(opt.nu["table"], every, 0.0)},
+                        count=opt.count)
+                else:
+                    gp = dict(gp)
+                    gp["logit_opacities"] = torch.full_like(gp["logit_opacities"], reset)
+                    opt = optim.zero_moments_for_key(opt, "logit_opacities")
 
-            gp, opt = optim.adam_step(gp, ggp, opt, lrs, eps=1e-15)
+            gp, opt = optim.adam_step(gp, ggp, opt, phase_lrs, eps=1e-15)
             if wants_mlp:
                 mlp, mlp_state = optim.adam_step(mlp, gmlp, mlp_state,
                                                  {"w": mlp_lr, "b": mlp_lr}, eps=1e-8)
-            if not compacted:
+            if not compacted and not packed:
                 variables["max_2D_radius"] = torch.where(
                     out.radii > 0,
                     torch.maximum(variables["max_2D_radius"], out.radii.float()),
@@ -184,7 +228,8 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
                 traces.setdefault(n, []).append(v)
 
         out_params = dict(params)
-        out_params.update({n: v.detach() for n, v in gp.items()})
+        out_params.update(rs.unpack_table(gp["table"], sem_w) if packed
+                          else {n: v.detach() for n, v in gp.items()})
         losses = {n: torch.stack(v) for n, v in traces.items()}
         return out_params, variables, mlp, mlp_state, losses
 

@@ -29,7 +29,7 @@ def adam_init(params: Params) -> AdamState:
     )
 
 
-def adam_step(params: Params, grads: Params, state: AdamState, lrs: Dict[str, float],
+def adam_step(params: Params, grads: Params, state: AdamState, lrs: Dict,
               eps: float = 1e-8, betas: Tuple[float, float] = (0.9, 0.999)
               ) -> Tuple[Params, AdamState]:
     b1, b2 = betas
@@ -42,7 +42,9 @@ def adam_step(params: Params, grads: Params, state: AdamState, lrs: Dict[str, fl
         mu = b1 * state.mu[k] + (1 - b1) * g
         nu = b2 * state.nu[k] + (1 - b2) * (g * g)
         new_mu[k], new_nu[k] = mu, nu
-        if lr == 0.0:
+        # lr may be a per-column tensor (the packed stream table's [5+F]
+        # row, broadcast over its [N, 5+F] rows)
+        if not isinstance(lr, torch.Tensor) and lr == 0.0:
             continue
         new_p[k] = params[k] - lr * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
     return new_p, AdamState(mu=new_mu, nu=new_nu, count=count)

@@ -369,8 +369,10 @@ class SLAMRunner:
             self.logger.log_iters(t, "mapping", losses)
             n_mb = int(np.max(losses.get("n_map_bin_dropped", 0.0)))
             if n_mb > self.overflow_warn_threshold:
+                knob = ("raster.stream_rows / stream_cap" if self.rc.backend == "stream"
+                        else "raster.bucket_spec")
                 warnings.warn(f"frame {t}: mapping binning dropped {n_mb} (gaussian, tile) "
-                              "pairs — consider widening raster.bucket_spec")
+                              f"pairs — consider widening {knob}")
                 self.logger.log(t, n_map_bin_dropped=n_mb)
             n_gd = int(np.max(losses.get("n_grad_dropped", 0.0)))
             if n_gd > 0:

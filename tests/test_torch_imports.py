@@ -51,12 +51,14 @@ def _entry_points():
         "make_tracker": lambda **kw: make_tracker(cam, LossConfig(), rc, 1e-3, 1e-3, 2, **kw),
         "make_mapper": lambda **kw: make_mapper(cam, LossConfig(), rc, {}, 2, PruneConfig(),
                                                 **kw),
+        "make_mapper_stream": lambda **kw: make_mapper(
+            cam, LossConfig(), RasterConfig(backend="stream"), {}, 2, PruneConfig(), **kw),
         "make_densifier": lambda **kw: make_densifier(cam, rc, 0.5, 0, **kw),
     }
 
 
-@pytest.mark.parametrize("name", ["make_tracker", "make_mapper", "make_densifier",
-                                  "SLAMRunner"])
+@pytest.mark.parametrize("name", ["make_tracker", "make_mapper", "make_mapper_stream",
+                                  "make_densifier", "SLAMRunner"])
 def test_entry_points_need_cuda_unless_cpu(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Where the GPU time of the PyTorch port's main path goes.
 
-Runs the flagship config (configs/replica/hierslam_semantic_run.py with
-``raster.backend="pallas"``) on frames of the procedural room at
-1200x680 with 26 semantic channels, as ``chip_smoke.py`` does, for frames
+Runs the flagship config (configs/replica/hierslam_semantic_run.py as
+shipped, ``raster.backend="stream"``, or the backend ``--backend`` names)
+on frames of the procedural room at 1200x680 with 26 semantic channels,
+as ``chip_smoke.py`` does, for frames
 0..N-3 unprofiled, then profiles frame N-2 (tracking only) and frame N-1
 (tracking, densify and a mapping phase when N is a multiple of
 ``map_every``) with torch.profiler.  Prints each frame's device-time table
 by kernel and the device busy share of its wall time, and writes the
 tracking frame's chrome trace under ``chiprun_out/``.
 
-    python3 tools/profile_torch_slam.py [--frames 8] [--top 30]
+    python3 tools/profile_torch_slam.py [--frames 8] [--top 30] [--backend pallas]
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--top", type=int, default=30)
+    ap.add_argument("--backend", default=None, help="override raster.backend")
     args = ap.parse_args()
     import torch
 
@@ -53,7 +55,9 @@ def main() -> int:
     n = args.frames
     ds = smoke.room_dataset(n, 1200, 680, 600.0)
     cfg = load_config(os.path.join(ROOT, "configs", "replica", "hierslam_semantic_run.py"))
-    cfg["raster"]["backend"] = "pallas"
+    if args.backend:
+        cfg["raster"]["backend"] = args.backend
+    print(f"raster.backend {cfg['raster']['backend']}", flush=True)
     cfg["data"]["num_frames"] = n
     cfg["workdir"] = tempfile.mkdtemp()
     runner = SLAMRunner(cfg, dataset=ds, device="cuda")
@@ -81,7 +85,8 @@ def main() -> int:
             print(f"  {ms:10.3f} ms {100 * ms / busy:5.1f}% {cnt:7d}x  {name[:100]}", flush=True)
         if t == n - 2:
             os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-            path = os.path.join(ROOT, "chiprun_out", f"profile_frame{t}.json")
+            path = os.path.join(ROOT, "chiprun_out",
+                                f"profile_{cfg['raster']['backend']}_frame{t}.json")
             prof.export_chrome_trace(path)
             print(f"trace: {os.path.relpath(path, ROOT)}", flush=True)
     return 0
