@@ -8,8 +8,12 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. environment: card name and power limit (nvidia-smi), kernel build with
-   nvcc from ``hierslam_torch/csrc`` (one nvcc per source, in parallel);
-2. kernels: K1/K2 (ladder blend) against their plain PyTorch versions at
+   nvcc from ``hierslam_torch/csrc`` (one nvcc per source, in parallel),
+   the ptxas report of K2/K4 (registers, shared memory, spill bytes; a
+   spill fails the run);
+2. kernels: K1-K4 against their plain PyTorch versions at F = 1, 3, 29
+   and 32 on small inputs (the padding cases of the backwards' warp
+   reduce-scatter); then K1/K2 (ladder blend) at
    the tracking shape (T=3225, K=512, F=3) and one ladder mapping class
    (T=128, K=4096, F=29), random tables from a seed; K3/K4 (stream blend)
    against theirs on the pair stream of a real map (frame 0 of the
@@ -157,6 +161,37 @@ def pair_stats(table, ok, grid_x: int):
     return n_fwd, n_bwd, n_comm, rows_fwd, rows_bwd
 
 
+def ptxas_summary(text: str):
+    """Per kernel instantiation in ``nvcc -Xptxas -v`` output: registers,
+    static shared memory and stack / spill bytes, as
+    {"stream_bwd_kernel<29>": {"registers": 85, "smem": 8, "stack": 0,
+    "spill_stores": 0, "spill_loads": 0}, ...}."""
+    import re
+
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            n = int(m.group(1))
+            name, rest = m.group(2)[:n], m.group(2)[n:]
+            t = re.match(r"ILi(\d+)E", rest)
+            cur = out.setdefault(f"{name}<{t.group(1)}>" if t else name, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def n_beyond(err, tol) -> int:
     return int((err > tol).sum())
 
@@ -169,6 +204,8 @@ def bound(nbytes, ops):
 
 
 def check_kernels(name: str, seed: int, T: int, K: int, F: int, grid_x: int, reps: int):
+    """K1/K2 against their plain versions on a random table; with ``reps``
+    > 0 also their times and bounds.  Returns (JSON rows or None, ok)."""
     import torch
 
     from hierslam_torch.ops import kernels, render_pallas
@@ -207,6 +244,8 @@ def check_kernels(name: str, seed: int, T: int, K: int, F: int, grid_x: int, rep
     pad_ok = bool((dtab[~ok] == 0).all())
     if not pad_ok:
         print(f"[kernels] {name} K2: masked slots got a nonzero gradient", flush=True)
+    if not reps:
+        return None, fwd_ok and bwd_ok and pad_ok
 
     ms_f = cuda_ms(lambda: kernels.blend_fwd(table, ok, grid_x, TILE), reps)
     ms_b = cuda_ms(lambda: kernels.blend_bwd(table, ok, ft, last, mslot, gacc, gft, gmed,
@@ -245,9 +284,10 @@ def check_kernels(name: str, seed: int, T: int, K: int, F: int, grid_x: int, rep
 
 def stream_inputs(cfg_path: str, n_feat: int, W: int = 1200, H: int = 680, f: float = 600.0):
     """The pair stream the main path's first mapping iteration blends: frame
-    0 of the procedural room back-projected (one gaussian per pixel, 26
-    semantic channels drawn from a seeded generator; F = 29, or F = 3
-    without them) in a map of SLAMRunner's first bucket of slots (the
+    0 of the procedural room back-projected (one gaussian per pixel, F - 3
+    semantic channels drawn from a seeded generator: 26 for the flagship's
+    F = 29; F < 3 keeps the first F colours) in a map of SLAMRunner's first
+    bucket of slots (the
     emission budgets of the binning scale with the slot count), the
     inactive slots at the sentinel logit, binned at the frame-0 pose with
     the flagship raster config and the mapper's 4 px margin."""
@@ -277,7 +317,7 @@ def stream_inputs(cfg_path: str, n_feat: int, W: int = 1200, H: int = 680, f: fl
     keys += ["semantic"] if n_feat > 3 else []
     fl = {k: torch.cat([v, torch.zeros((bucket - n,) + v.shape[1:], device=dev)])
           for k, v in fl.items()}
-    table = torch.cat([fl[k] for k in keys], 1)
+    table = torch.cat([fl[k] for k in keys], 1)[:, :5 + n_feat].contiguous()
     table[~active, rs.COL_LOGIT] = rs.SENTINEL_LOGIT
     rc = raster_config(load_config(cfg_path))
     w2c_t = torch.as_tensor(w2c, dtype=torch.float32, device=dev)
@@ -327,6 +367,9 @@ def stream_pair_stats(stream, sc, row_off, grid, n_feat, img_shape):
 
 
 def check_stream_kernels(cfg_path: str, n_feat: int, reps: int, **size):
+    """K3/K4 against their plain versions on the pair stream of
+    ``stream_inputs`` (``size``: W, H, f of a smaller frame); with ``reps``
+    > 0 also their times and bounds.  Returns (JSON rows or None, ok)."""
     import torch
 
     from hierslam_torch.ops import kernels, render_stream as rs
@@ -336,7 +379,8 @@ def check_stream_kernels(cfg_path: str, n_feat: int, reps: int, **size):
     R, _, C = stream.shape
     T = grid[0] * grid[1]
     F = n_feat
-    name = f"flagship stream R={R} F={F}"
+    name = (f"flagship stream R={R} F={F}" if not size else
+            f"stream {size['W']}x{size['H']} R={R} F={F}")
     print(f"[kernels] {name}: n_rows {int(lists.n_rows)} n_refs {int(lists.n_refs)} n_dropped "
           f"{int(lists.n_dropped)} n_sat_masked {int(lists.n_sat_masked)} max rows a tile "
           f"{int((ro[1:] - ro[:-1]).max())}", flush=True)
@@ -369,6 +413,8 @@ def check_stream_kernels(cfg_path: str, n_feat: int, reps: int, **size):
     print(f"[kernels] {name} K4: max abs err {bwd_err:.3e}, max err/(1+|ref|) "
           f"{float(rel.max()):.3e}; pairs beyond tolerance {n_fl_b} of {R * RW} (allowed 0); "
           f"{int(pad.sum())} pad pairs, all exactly 0: {pad_ok}", flush=True)
+    if not reps:
+        return None, n_fl == 0 and n_fl_b == 0 and pad_ok
 
     ms_f = cuda_ms(lambda: kernels.stream_fwd(stream, sc, ro, grid[1], TILE, F, img), reps)
     ms_b = cuda_ms(lambda: kernels.stream_bwd(stream, sc, ro, ft, last, mpos, gacc, gft, gmed,
@@ -481,7 +527,7 @@ def reference_phase(cfg_path: str, backend: str):
     d_traj = float(np.max(np.abs(g[2] - c[2])))
     print(f"[reference] {backend} mapper, GPU kernels vs CPU plain, 3 frames 96x64: "
           f"tracking loss rel "
-          f"{d_track:.2e}, mapping loss rel {d_map:.2e}, trajectory abs {d_traj:.2e} m "
+          f"{d_track:.6e}, mapping loss rel {d_map:.6e}, trajectory abs {d_traj:.6e} m "
           "(tolerances 1e-2, 1e-2, 1e-3: float32 sums in another order, compounded "
           "over 10 Adam steps)", flush=True)
     return d_track <= 1e-2 and d_map <= 1e-2 and d_traj <= 1e-3
@@ -621,9 +667,30 @@ def main() -> int:
     t0 = time.time()
     kernels.build(verbose=True)
     print(f"[build] kernels built in {time.time() - t0:.1f} s", flush=True)
+    ptx = {}   # read from the report kept beside each library, built now or before
+    for src in kernels.SOURCES:
+        ptx.update(ptxas_summary(kernels.ptxas_report(src)))
+    spills = sum(v.get("spill_stores", 0) + v.get("spill_loads", 0) for v in ptx.values())
+    bwd = {k: v for k, v in ptx.items() if k.startswith(("blend_bwd", "stream_bwd"))}
+    dyn = {f"{src} C={C}": kernels.bwd_batch(src, C, P)
+           for src, C in (("blend.cu", 10), ("blend.cu", 36), ("stream.cu", 8),
+                          ("stream.cu", 34))}
+    print(f"[build] ptxas K2/K4: {json.dumps(bwd, sort_keys=True)}; (batch, dynamic smem "
+          f"bytes) at P={P}: {json.dumps(dyn)}; spill bytes over all kernels {spills}",
+          flush=True)
+    if not bwd or any(v.get("spill_stores", 1) + v.get("spill_loads", 1) for v in bwd.values()):
+        fail("K2/K4 spill registers to local memory (or their ptxas report is missing)")
 
     rows = []
     ok = True
+    cfg_path = os.path.join(ROOT, "configs", "replica", "hierslam_semantic_run.py")
+    # every feature bucket and padding case of the backwards' reduce-scatter
+    # on small inputs, then the main path's shapes with timings
+    for F in (1, 3, 29, 32):
+        ok &= check_kernels(f"small T=48 K=256 F={F}", 10 + F, 48, 256, F, 8, 0)[1]
+        ok &= check_stream_kernels(cfg_path, F, 0, W=160, H=96, f=80.0)[1]
+    if not ok:
+        fail("kernel check at small shapes")
     for name, seed, T, K, F, gx, reps in (("tracking T=3225 K=512 F=3", 0, 3225, 512, 3, 75, 20),
                                           ("mapping T=128 K=4096 F=29", 1, 128, 4096, 29, 128, 20)):
         r, good = check_kernels(name, seed, T, K, F, gx, reps)
@@ -631,7 +698,6 @@ def main() -> int:
         ok &= good
     if not ok:
         fail("ladder kernel check")
-    cfg_path = os.path.join(ROOT, "configs", "replica", "hierslam_semantic_run.py")
     for n_feat in (29, 3):
         r, good = check_stream_kernels(cfg_path, n_feat, 20)
         rows += r

@@ -37,26 +37,49 @@
 //
 // K4 design: one block per tile, one thread per pixel, rows back to front
 // from the row holding the tile's largest last-committed position.  Each
-// row is reloaded and re-projected; each pixel recovers T before each pair
-// as T_after / (1 - a) from K3's final T and takes every discrete choice from
-// K3: which pairs commit (position <= its last) and where the median
-// cotangent lands (K3's median position; it is not re-derived from the
-// recovered T, which near 0.5 can fall on the other side).  Per pair, the
-// 7 + F per-pixel terms (screen x, y, conic a b c, opacity, depth with the
-// median term, features) are summed over the tile's pixels with warp
-// shuffles and one pass over the warps in shared memory, in batches of sb
-// pairs (no atomics: each tile owns its rows of the output).  Threads 0-127
-// then chain each pair's screen-space gradient to the raw columns, following
-// render_stream.py:422-479: conic -> cov2d -> J -> camera mean (zero outside
-// the strict fov clamp) and the projective xy -> R^T to the world mean;
-// 2 s^2 g_s2 to the log scale; sigmoid' to the logit.  No pose gradient.
-// Rows past the tile's last committed pair are not written: the wrapper's
-// zero fill leaves them, the pad rows and everything past row_off[T] at 0.
-// What bounds it: the per-pixel suffix-sum arithmetic plus the per-pair
-// reduction over 256 pixels (7 + F values, five shuffle steps each).
+// row is loaded (float4) and projected once: threads 0-127 write the screen
+// record the pixels read (two float4 a pair), a float4-aligned copy of the
+// features and the projection terms the chain step reads (18 floats a
+// pair) to shared memory; the raw row is then dead and the reduction's
+// buffer takes its place.  Each pixel recovers T before each pair as
+// T_after / (1 - a) from K3's final T (one approximate reciprocal: no
+// discrete test reads T) and takes every discrete choice from K3: which
+// pairs commit (position <= its last) and where the median cotangent lands
+// (K3's median position; it is not re-derived from the recovered T, which
+// near 0.5 can fall on the other side).  Per pair, the 7 + F per-pixel
+// terms (screen x, y, conic a b c, opacity, depth with the median term,
+// features) are summed over the tile's pixels: a warp reduce-scatter
+// (reduce.cuh: 38 shuffles at F = 29 where a butterfly per value took 180,
+// 14 at F = 3 against 50) leaves the warp's sums spread over its lanes,
+// which store them to shared memory, and one pass over the warps finishes
+// them, in batches of sb pairs (no atomics: each tile owns its rows of the
+// output).  A warp with no active pixel on a pair stores zeros; a batch no
+// pixel of the tile is active in skips the pass over the warps (its gain is
+// within the spread of timings, but without it ptxas spills 8 bytes at
+// F <= 29 under the 80-register cap).  Threads
+// 0-127 then chain each pair's screen-space gradient to the raw columns,
+// following render_stream.py:422-479: conic -> cov2d -> J -> camera mean
+// (zero outside the strict fov clamp) and the projective xy -> R^T to the
+// world mean; 2 s^2 g_s2 to the log scale; sigmoid' to the logit.  No pose
+// gradient.  Rows past the tile's last committed pair are not written: the
+// wrapper's zero fill leaves them, the pad rows and everything past
+// row_off[T] at 0.
+// What bounds it: issue per (pixel, pair) walked, and the shared-memory
+// pipe that shuffles and shared loads both use -- the reduce-scatter's
+// shuffles, selects and adds (~4 per value), the feature loads and the
+// suffix-sum and term arithmetic (~3 F + 40 operations, without FMA
+// contraction) -- against a memory bound below 0.3 ms.  So the design cuts
+// shuffles (reduce-scatter), shared loads (float4 records and features) and
+// address arithmetic (pointers stepped down with the pair), and raises
+// occupancy: the feature cotangents and terms are register arrays sized by
+// the feature bucket (F <= 3, F <= 29, F <= 32), and the wide buckets keep
+// the median position and cotangent in shared memory, which lets F <= 29
+// fit 3 blocks of 256 (80 registers) an SM with no spill (k4_min_blocks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "reduce.cuh"
 
 #define ALPHA_MIN (1.0f / 255.0f)
 #define ALPHA_MAX 0.99f
@@ -66,6 +89,19 @@
 #define NSC 28       // pose + projection scalars
 #define NSCR 8       // screen record: x y a b c opacity depth valid
 #define ND 7         // screen-space gradient terms per pair
+#define BWD_THREADS 256  // most pixels a tile K4 takes
+#define MAX_DEVICES 64   // devices K4's shared-memory grant is tracked for
+// K4 blocks an SM must hold, which sets the register cap (65,536 / (256 x
+// blocks), rounded down to 8): 3 (80 registers) for the buckets that fit
+// that with no spill, F <= 3 and F <= 29; 2 (up to 128) for F <= 32, which
+// spills 8 bytes at 80.
+__host__ __device__ constexpr int k4_min_blocks(int maxf) { return maxf <= 29 ? 3 : 2; }
+
+// Projection terms the chain step reads, [NCH][RW] in shared memory.
+enum {
+  CH_A, CH_B, CH_C, CH_DET, CH_DETI, CH_J00, CH_J02, CH_J11, CH_J12, CH_S2, CH_INVZ, CH_TXC,
+  CH_TYC, CH_MCX, CH_MCY, CH_PW, CH_PHX, CH_PHY, NCH
+};
 
 struct Proj {
   float px, py, ca, cb, cc, opa, dep;
@@ -136,20 +172,48 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src, float* d
   for (int i = p; i < RW * C / 4; i += P) d4[i] = s4[i];
 }
 
-// Threads 0..RW-1 project the row's pairs into the shared screen records.
+// Feature stride of K4's shared copy: F padded to a float4, plus one float4
+// so that the 128-bit stores of 8 neighbouring pairs fall in distinct banks.
+__host__ __device__ constexpr int feat_stride(int F) { return ((F + 3) & ~3) + 4; }
+
+// Threads 0..RW-1 project the row's pairs into the shared screen records
+// ([RW][NSCR], read as two float4 a pair) and, in K4 (s_chn given), the
+// chain step's terms and a float4-aligned copy of the features (pads 0).
 __device__ __forceinline__ void project_row(const float* s_row, const float* s_sc, float* s_scr,
-                                            int C, int p, float img_w, float img_h,
-                                            float tile_x, float tile_y, float th, float tw) {
+                                            float* s_chn, float* s_feat, int C, int p,
+                                            float img_w, float img_h, float tile_x,
+                                            float tile_y, float th, float tw) {
   if (p < RW) {
-    const Proj q = project_pair(s_row + p * C, s_sc, img_w, img_h, tile_x, tile_y, th, tw);
-    s_scr[0 * RW + p] = q.px;
-    s_scr[1 * RW + p] = q.py;
-    s_scr[2 * RW + p] = q.ca;
-    s_scr[3 * RW + p] = q.cb;
-    s_scr[4 * RW + p] = q.cc;
-    s_scr[5 * RW + p] = q.opa;
-    s_scr[6 * RW + p] = q.dep;
-    s_scr[7 * RW + p] = q.valid ? 1.0f : 0.0f;
+    const float* g = s_row + p * C;
+    const Proj q = project_pair(g, s_sc, img_w, img_h, tile_x, tile_y, th, tw);
+    float4* scr4 = reinterpret_cast<float4*>(s_scr) + 2 * p;
+    scr4[0] = make_float4(q.px, q.py, q.ca, q.cb);
+    scr4[1] = make_float4(q.cc, q.opa, q.dep, q.valid ? 1.0f : 0.0f);
+    if (s_chn) {
+      const int F = C - 5;
+      float4* f4 = reinterpret_cast<float4*>(s_feat + p * feat_stride(F));
+      for (int c = 0; c < F; c += 4)
+        f4[c / 4] = make_float4(g[5 + c], c + 1 < F ? g[6 + c] : 0.f,
+                                c + 2 < F ? g[7 + c] : 0.f, c + 3 < F ? g[8 + c] : 0.f);
+      s_chn[CH_A * RW + p] = q.cxx;
+      s_chn[CH_B * RW + p] = q.cxy;
+      s_chn[CH_C * RW + p] = q.cyy;
+      s_chn[CH_DET * RW + p] = q.det;
+      s_chn[CH_DETI * RW + p] = q.det_inv;
+      s_chn[CH_J00 * RW + p] = q.j00;
+      s_chn[CH_J02 * RW + p] = q.j02;
+      s_chn[CH_J11 * RW + p] = q.j11;
+      s_chn[CH_J12 * RW + p] = q.j12;
+      s_chn[CH_S2 * RW + p] = q.s2;
+      s_chn[CH_INVZ * RW + p] = q.inv_z;
+      s_chn[CH_TXC * RW + p] = q.txc;
+      s_chn[CH_TYC * RW + p] = q.tyc;
+      s_chn[CH_MCX * RW + p] = q.mcx;
+      s_chn[CH_MCY * RW + p] = q.mcy;
+      s_chn[CH_PW * RW + p] = q.p_w;
+      s_chn[CH_PHX * RW + p] = q.ph_x;
+      s_chn[CH_PHY * RW + p] = q.ph_y;
+    }
   }
 }
 
@@ -162,7 +226,8 @@ __global__ void stream_fwd_kernel(const float* __restrict__ stream, const float*
                                   int* __restrict__ mpos) {
   extern __shared__ float4 smem4[];
   float* s_row = reinterpret_cast<float*>(smem4);  // [RW][C]
-  float* s_scr = s_row + RW * C;                   // [NSCR][RW]
+  float* s_scr = s_row + RW * C;                   // [RW][NSCR]
+  const float4* scr4 = reinterpret_cast<const float4*>(s_scr);
   __shared__ float s_sc[NSC];
   const int F = C - 5;
   const int tile = blockIdx.x;
@@ -188,17 +253,19 @@ __global__ void stream_fwd_kernel(const float* __restrict__ stream, const float*
     __syncthreads();  // the previous row's records have been read
     load_row(stream + (size_t)r * RW * C, s_row, C, p, P);
     __syncthreads();
-    project_row(s_row, s_sc, s_scr, C, p, img_w, img_h, tile_x, tile_y, (float)th, (float)tw);
+    project_row(s_row, s_sc, s_scr, nullptr, nullptr, C, p, img_w, img_h, tile_x, tile_y,
+                (float)th, (float)tw);
     __syncthreads();
     if (!done) {
       for (int j = 0; j < RW; ++j) {
-        if (s_scr[7 * RW + j] == 0.0f) continue;
-        const float dx = s_scr[0 * RW + j] - px;
-        const float dy = s_scr[1 * RW + j] - py;
-        const float power = -0.5f * (s_scr[2 * RW + j] * dx * dx + s_scr[4 * RW + j] * dy * dy) -
-                            s_scr[3 * RW + j] * dx * dy;
+        const float4 q0 = scr4[2 * j];      // x y a b
+        const float4 q1 = scr4[2 * j + 1];  // c opacity depth valid
+        if (q1.w == 0.0f) continue;
+        const float dx = q0.x - px;
+        const float dy = q0.y - py;
+        const float power = -0.5f * (q0.z * dx * dx + q1.x * dy * dy) - q0.w * dx * dy;
         if (power > 0.f) continue;
-        const float alpha = fminf(ALPHA_MAX, s_scr[5 * RW + j] * expf(power));
+        const float alpha = fminf(ALPHA_MAX, q1.y * expf(power));
         if (alpha < ALPHA_MIN) continue;
         const float test_T = T * (1.f - alpha);
         if (test_T < T_DONE) {
@@ -210,7 +277,7 @@ __global__ void stream_fwd_kernel(const float* __restrict__ stream, const float*
 #pragma unroll
         for (int c = 0; c < MAXF; ++c)
           if (c < F) a_f[c] += feat[c] * w;
-        const float dep = s_scr[6 * RW + j];
+        const float dep = q1.z;
         a_dep += dep * w;
         a_mass += w;
         if (T > 0.5f && test_T < 0.5f) {
@@ -238,33 +305,42 @@ __global__ void stream_fwd_kernel(const float* __restrict__ stream, const float*
 }
 
 template <int MAXF>
-__global__ void stream_bwd_kernel(const float* __restrict__ stream, const float* __restrict__ scal,
-                                  const int* __restrict__ row_off, int R, int C, int grid_x,
-                                  int th, int tw, float img_w, float img_h,
-                                  const float* __restrict__ ft, const int* __restrict__ last,
-                                  const int* __restrict__ mpos, const float* __restrict__ gacc,
-                                  const float* __restrict__ gft, const float* __restrict__ gmed,
-                                  int sb, float* __restrict__ dtab) {
+__global__ void __launch_bounds__(BWD_THREADS, k4_min_blocks(MAXF))
+stream_bwd_kernel(const float* __restrict__ stream, const float* __restrict__ scal,
+                  const int* __restrict__ row_off, int R, int C, int grid_x, int th, int tw,
+                  float img_w, float img_h, const float* __restrict__ ft,
+                  const int* __restrict__ last, const int* __restrict__ mpos,
+                  const float* __restrict__ gacc, const float* __restrict__ gft,
+                  const float* __restrict__ gmed, int sb, float* __restrict__ dtab) {
+  constexpr int V = ND + MAXF;                     // terms summed per pair (bucket)
   extern __shared__ float4 smem4[];
   const int F = C - 5;
-  const int NR = ND + F;                           // reduced terms per pair
+  const int NR = ND + F;                           // terms stored per pair
   const int P = blockDim.x;
   const int nwarps = P / 32;
-  float* s_row = reinterpret_cast<float*>(smem4);  // [RW][C]
-  float* s_scr = s_row + RW * C;                   // [NSCR][RW]
-  float* s_d = s_scr + NSCR * RW;                  // [RW][ND]
-  float* s_red = s_d + ND * RW;                    // [nwarps][sb][NR]
+  const int FS = feat_stride(F);
+  // the raw row is dead once projected: the reduction's buffer takes its place
+  float* s_row = reinterpret_cast<float*>(smem4);  // [RW][C] until projected
+  float* s_red = s_row;                            // [nwarps][sb][NR] after
+  float* s_feat = s_row + max(RW * C, (nwarps * sb * NR + 3) & ~3);  // [RW][FS]
+  float* s_scr = s_feat + RW * FS;                 // [RW][NSCR]
+  float* s_chn = s_scr + NSCR * RW;                // [NCH][RW]
+  float* s_d = s_chn + NCH * RW;                   // [RW][ND]
+  const float4* scr4 = reinterpret_cast<const float4*>(s_scr);
   __shared__ float s_sc[NSC];
   __shared__ int s_maxlast;
+  // the wide buckets keep each pixel's median position and cotangent out of
+  // registers, which is what lets F <= 29 fit 80; at F <= 3 registers are
+  // cheaper than the shared load per pair
+  constexpr bool MED_SHARED = MAXF > 3;
+  __shared__ int s_mpos[BWD_THREADS];
+  __shared__ float s_gmed[BWD_THREADS];
 
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
   if (p < NSC) s_sc[p] = scal[p];
-  const int r0 = row_off[tile];
-  const float tile_x = (float)(tile % grid_x);
-  const float tile_y = (float)(tile / grid_x);
   const float px = (float)((tile % grid_x) * tw + p % tw);
   const float py = (float)((tile / grid_x) * th + p / tw);
   const size_t pix = (size_t)tile * P + p;
@@ -276,9 +352,13 @@ __global__ void stream_bwd_kernel(const float* __restrict__ stream, const float*
   const float ga_mass = gacc[pix * (F + 2) + F + 1];
   const float T_final = ft[pix];
   const float gTT = gft[pix] * T_final;
-  const float gm = gmed[pix];
   const int mylast = last[pix];
-  const int mymed = mpos[pix];
+  const int mymed = MED_SHARED ? -1 : mpos[pix];
+  const float gm = MED_SHARED ? 0.f : gmed[pix];
+  if (MED_SHARED) {
+    s_mpos[p] = mpos[pix];
+    s_gmed[p] = gmed[pix];
+  }
 
   if (p == 0) s_maxlast = -1;
   __syncthreads();
@@ -290,125 +370,150 @@ __global__ void stream_bwd_kernel(const float* __restrict__ stream, const float*
 
   float T = T_final;
   float S = 0.f;
-  for (int r = r_top; r >= r0; --r) {
-    __syncthreads();  // the previous row's chain step has read s_row / s_d
+  // the tile's first row and its grid coordinates are read again where used,
+  // not held in registers across the walk
+  for (int r = r_top; r >= row_off[tile]; --r) {
+    __syncthreads();  // the previous row's chain step has read s_chn / s_d
     load_row(stream + (size_t)r * RW * C, s_row, C, p, P);
     __syncthreads();
-    project_row(s_row, s_sc, s_scr, C, p, img_w, img_h, tile_x, tile_y, (float)th, (float)tw);
+    project_row(s_row, s_sc, s_scr, s_chn, s_feat, C, p, img_w, img_h,
+                (float)(tile % grid_x), (float)(tile / grid_x), (float)th, (float)tw);
     __syncthreads();
     for (int hi = RW - 1; hi >= 0; hi -= sb) {
       const int lo = max(0, hi - sb + 1);
       const int n = hi - lo + 1;
-      for (int jj = n - 1; jj >= 0; --jj) {
+      bool busy = false;  // a pixel of this warp is active in the batch
+      // the pair's screen record and this warp's sums for it, stepped down
+      // with jj
+      const float4* q4 = scr4 + 2 * hi;
+      float* red = s_red + ((size_t)warp * sb + n - 1) * NR;
+      for (int jj = n - 1; jj >= 0; --jj, q4 -= 2, red -= NR) {
         const int j = lo + jj;
         const int pos = r * RW + j;
-        float gr[MAXF + ND];
-#pragma unroll
-        for (int c = 0; c < MAXF + ND; ++c) gr[c] = 0.f;
+        // the pair's terms for this pixel, 0 where it does not commit
+        float g[ND] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        float w = 0.f;
         bool act = false;
-        if (pos <= mylast && s_scr[7 * RW + j] != 0.0f) {
-          const float ca = s_scr[2 * RW + j], cb = s_scr[3 * RW + j], cc = s_scr[4 * RW + j];
-          const float dx = s_scr[0 * RW + j] - px;
-          const float dy = s_scr[1 * RW + j] - py;
+        const float4 q0 = q4[0];  // x y a b
+        const float4 q1 = q4[1];  // c opacity depth valid
+        if (pos <= mylast && q1.w != 0.0f) {
+          const float ca = q0.z, cb = q0.w, cc = q1.x;
+          const float dx = q0.x - px;
+          const float dy = q0.y - py;
           const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
           if (power <= 0.f) {
             const float ep = expf(power);
-            const float alpha = fminf(ALPHA_MAX, s_scr[5 * RW + j] * ep);
+            const float alpha = fminf(ALPHA_MAX, q1.y * ep);
             if (alpha >= ALPHA_MIN) {
               act = true;
-              const float* feat = s_row + j * C + 5;
-              const float dep = s_scr[6 * RW + j];
+              const float4* f4 = reinterpret_cast<const float4*>(s_feat + j * FS);
+              const float dep = q1.z;
               const float u = 1.f - alpha;
-              const float Tb = T / u;
-              float s = ga_dep * dep + ga_mass;
+              // one reciprocal for both quotients, to 2 ulp: no discrete test reads T
+              const float inv_u = __fdividef(1.f, u);
+              const float Tb = T * inv_u;
+              // continuous terms: FMA is taken explicitly here (the build
+              // contracts nothing, for the discrete tests above)
+              float s = __fmaf_rn(ga_dep, dep, ga_mass);
 #pragma unroll
-              for (int c = 0; c < MAXF; ++c)
-                if (c < F) s += ga[c] * feat[c];
-              const float w = alpha * Tb;
-              const float da = s * Tb - (S + gTT) / u;
-              S += s * w;
+              for (int c = 0; c < MAXF; c += 4) {
+                if (c < F) {  // pads past F are 0, as ga is
+                  const float4 v = f4[c / 4];
+                  s = __fmaf_rn(ga[c], v.x, s);
+                  if (c + 1 < MAXF) s = __fmaf_rn(ga[c + 1], v.y, s);
+                  if (c + 2 < MAXF) s = __fmaf_rn(ga[c + 2], v.z, s);
+                  if (c + 3 < MAXF) s = __fmaf_rn(ga[c + 3], v.w, s);
+                }
+              }
+              w = alpha * Tb;
+              const float da = s * Tb - (S + gTT) * inv_u;
+              S = __fmaf_rn(s, w, S);
               float dopa = 0.f, dpow = 0.f;
               if (alpha < ALPHA_MAX) {
                 dopa = ep * da;
                 dpow = alpha * da;
               }
-              gr[0] = dpow * (-(ca * dx + cb * dy));
-              gr[1] = dpow * (-(cc * dy + cb * dx));
-              gr[2] = -0.5f * dx * dx * dpow;
-              gr[3] = -dx * dy * dpow;
-              gr[4] = -0.5f * dy * dy * dpow;
-              gr[5] = dopa;
-              gr[6] = ga_dep * w + (pos == mymed ? gm : 0.f);
-#pragma unroll
-              for (int c = 0; c < MAXF; ++c)
-                if (c < F) gr[ND + c] = ga[c] * w;
+              g[0] = dpow * (-(ca * dx + cb * dy));
+              g[1] = dpow * (-(cc * dy + cb * dx));
+              g[2] = -0.5f * dx * dx * dpow;
+              g[3] = -dx * dy * dpow;
+              g[4] = -0.5f * dy * dy * dpow;
+              g[5] = dopa;
+              if (MED_SHARED)
+                g[6] = ga_dep * w + (pos == s_mpos[p] ? s_gmed[p] : 0.f);
+              else
+                g[6] = ga_dep * w + (pos == mymed ? gm : 0.f);
               T = Tb;
             }
           }
         }
-        float* red = s_red + ((size_t)warp * sb + jj) * NR;
-        if (__any_sync(0xffffffffu, act)) {
-#pragma unroll
-          for (int c = 0; c < MAXF + ND; ++c) {
-            if (c < NR) {
-              float v = gr[c];
-#pragma unroll
-              for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-              if (lane == 0) red[c] = v;
-            }
-          }
-        } else if (lane == 0) {
-          for (int c = 0; c < NR; ++c) red[c] = 0.f;
+        if (__any_sync(hsl::FULL_MASK, act)) {
+          busy = true;
+          hsl::warp_sum_store<V>(
+              [&](int c) { return c < ND ? g[c] : (c - ND < MAXF ? ga[c - ND] * w : 0.f); },
+              red, NR, lane);
+        } else {
+          hsl::warp_zero_store(red, NR, lane);
         }
       }
-      __syncthreads();
-      for (int i = p; i < n * NR; i += P) {
-        float v = 0.f;
-        for (int w = 0; w < nwarps; ++w) v += s_red[(size_t)w * sb * NR + i];
-        const int j = lo + i / NR;
-        const int c = i % NR;
-        if (c < ND)
-          s_d[j * ND + c] = v;
-        else
-          dtab[((size_t)r * RW + j) * C + 5 + (c - ND)] = v;
+      if (__syncthreads_or(busy)) {
+        for (int i = p; i < n * NR; i += P) {
+          float v = 0.f;
+          for (int w = 0; w < nwarps; ++w) v += s_red[(size_t)w * sb * NR + i];
+          const int j = lo + i / NR;
+          const int c = i % NR;
+          if (c < ND)
+            s_d[j * ND + c] = v;
+          else
+            dtab[((size_t)r * RW + j) * C + 5 + (c - ND)] = v;
+        }
+      } else {
+        // no pixel of the tile is active in the batch: its features stay at
+        // the wrapper's zero fill
+        for (int i = p; i < n * ND; i += P) s_d[lo * ND + i] = 0.f;
       }
       __syncthreads();  // s_red is free for the next batch, s_d is complete
     }
 
     // chain each pair's screen-space gradient to its raw columns
     if (p < RW) {
-      const Proj q = project_pair(s_row + p * C, s_sc, img_w, img_h, tile_x, tile_y, (float)th,
-                                  (float)tw);
       const float* d = s_d + p * ND;
       const float d_px = d[0], d_py = d[1], d_ca = d[2], d_cb = d[3], d_cc = d[4];
       const float d_opa = d[5], d_dep = d[6];
-      const float A = q.cxx, B = q.cxy, Cc = q.cyy;
-      const float d2 = q.det_inv * q.det_inv;
+#define CHN(k) s_chn[(k) * RW + p]
+      const float A = CHN(CH_A), B = CHN(CH_B), Cc = CHN(CH_C), det = CHN(CH_DET);
+      const float j00 = CHN(CH_J00), j02 = CHN(CH_J02), j11 = CHN(CH_J11), j12 = CHN(CH_J12);
+      const float s2 = CHN(CH_S2), inv_z = CHN(CH_INVZ), txc = CHN(CH_TXC), tyc = CHN(CH_TYC);
+      const float mcx = CHN(CH_MCX), mcy = CHN(CH_MCY), p_w = CHN(CH_PW);
+      const float ph_x = CHN(CH_PHX), ph_y = CHN(CH_PHY);
+      const float d2 = CHN(CH_DETI) * CHN(CH_DETI);
+#undef CHN
+      const float opa = s_scr[p * NSCR + 5];
       const float g_A = (-Cc * Cc * d_ca + B * Cc * d_cb - B * B * d_cc) * d2;
-      const float g_B = (2.f * B * Cc * d_ca - (q.det + 2.f * B * B) * d_cb + 2.f * A * B * d_cc) * d2;
+      const float g_B = (2.f * B * Cc * d_ca - (det + 2.f * B * B) * d_cb + 2.f * A * B * d_cc) * d2;
       const float g_C = (-B * B * d_ca + A * B * d_cb - A * A * d_cc) * d2;
-      const float g_s2 = g_A * (q.j00 * q.j00 + q.j02 * q.j02) + g_B * (q.j02 * q.j12) +
-                         g_C * (q.j11 * q.j11 + q.j12 * q.j12);
-      const float g_j00 = g_A * q.s2 * 2.f * q.j00;
-      const float g_j02 = g_A * q.s2 * 2.f * q.j02 + g_B * q.s2 * q.j12;
-      const float g_j11 = g_C * q.s2 * 2.f * q.j11;
-      const float g_j12 = g_C * q.s2 * 2.f * q.j12 + g_B * q.s2 * q.j02;
+      const float g_s2 = g_A * (j00 * j00 + j02 * j02) + g_B * (j02 * j12) +
+                         g_C * (j11 * j11 + j12 * j12);
+      const float g_j00 = g_A * s2 * 2.f * j00;
+      const float g_j02 = g_A * s2 * 2.f * j02 + g_B * s2 * j12;
+      const float g_j11 = g_C * s2 * 2.f * j11;
+      const float g_j12 = g_C * s2 * 2.f * j12 + g_B * s2 * j02;
       const float fx = s_sc[24], fy = s_sc[25], limx = s_sc[26], limy = s_sc[27];
-      const float g_txc = -fx * q.inv_z * g_j02;
-      const float g_tyc = -fy * q.inv_z * g_j12;
-      float g_inv_z = fx * g_j00 + fy * g_j11 - fx * q.txc * g_j02 - fy * q.tyc * g_j12;
+      const float g_txc = -fx * inv_z * g_j02;
+      const float g_tyc = -fy * inv_z * g_j12;
+      float g_inv_z = fx * g_j00 + fy * g_j11 - fx * txc * g_j02 - fy * tyc * g_j12;
       // txc = clip(mcx / z): no gradient outside the fov limits (strict)
-      const bool in_x = fabsf(q.mcx * q.inv_z) < limx;
-      const bool in_y = fabsf(q.mcy * q.inv_z) < limy;
-      float g_mcx = in_x ? q.inv_z * g_txc : 0.f;
-      float g_mcy = in_y ? q.inv_z * g_tyc : 0.f;
-      g_inv_z = g_inv_z + ((in_x ? q.mcx * g_txc : 0.f) + (in_y ? q.mcy * g_tyc : 0.f));
-      float g_mcz = -q.inv_z * q.inv_z * g_inv_z;
+      const bool in_x = fabsf(mcx * inv_z) < limx;
+      const bool in_y = fabsf(mcy * inv_z) < limy;
+      float g_mcx = in_x ? inv_z * g_txc : 0.f;
+      float g_mcy = in_y ? inv_z * g_tyc : 0.f;
+      g_inv_z = g_inv_z + ((in_x ? mcx * g_txc : 0.f) + (in_y ? mcy * g_tyc : 0.f));
+      float g_mcz = -inv_z * inv_z * g_inv_z;
       const float W2 = img_w * 0.5f, H2 = img_h * 0.5f;
-      const float g_phx = d_px * W2 * q.p_w;
-      const float g_phy = d_py * H2 * q.p_w;
-      const float g_pw = d_px * W2 * q.ph_x + d_py * H2 * q.ph_y;
-      const float g_phw = -g_pw * q.p_w * q.p_w;
+      const float g_phx = d_px * W2 * p_w;
+      const float g_phy = d_py * H2 * p_w;
+      const float g_pw = d_px * W2 * ph_x + d_py * H2 * ph_y;
+      const float g_phw = -g_pw * p_w * p_w;
       g_mcx = g_mcx + s_sc[12] * g_phx + s_sc[16] * g_phy + s_sc[20] * g_phw;
       g_mcy = g_mcy + s_sc[13] * g_phx + s_sc[17] * g_phy + s_sc[21] * g_phw;
       g_mcz = g_mcz + s_sc[14] * g_phx + s_sc[18] * g_phy + s_sc[22] * g_phw;
@@ -417,8 +522,8 @@ __global__ void stream_bwd_kernel(const float* __restrict__ stream, const float*
       out[0] = s_sc[0] * g_mcx + s_sc[3] * g_mcy + s_sc[6] * g_mcz;
       out[1] = s_sc[1] * g_mcx + s_sc[4] * g_mcy + s_sc[7] * g_mcz;
       out[2] = s_sc[2] * g_mcx + s_sc[5] * g_mcy + s_sc[8] * g_mcz;
-      out[3] = 2.f * q.s2 * g_s2;
-      out[4] = d_opa * q.opa * (1.f - q.opa);
+      out[3] = 2.f * s2 * g_s2;
+      out[4] = d_opa * opa * (1.f - opa);
     }
   }
 }
@@ -434,6 +539,13 @@ static cudaError_t launch_fwd(const float* stream, const float* sc, const int* r
   return cudaGetLastError();
 }
 
+// Shared memory (bytes) of one K4 block for C columns, P pixels, batch sb.
+static int bwd_smem(int C, int P, int sb) {
+  const int red = ((P / 32) * sb * (ND + C - 5) + 3) & ~3;
+  return ((RW * C > red ? RW * C : red) + RW * feat_stride(C - 5) + (NSCR + NCH + ND) * RW) *
+         (int)sizeof(float);
+}
+
 template <int MAXF>
 static cudaError_t launch_bwd(const float* stream, const float* sc, const int* row_off,
                               const float* ft, const int* last, const int* mpos,
@@ -441,10 +553,23 @@ static cudaError_t launch_bwd(const float* stream, const float* sc, const int* r
                               int R, int C, int grid_x, int th, int tw, float img_w,
                               float img_h, int sb, float* dtab, cudaStream_t s) {
   const int P = th * tw;
-  const size_t shmem =
-      (size_t)(RW * C + NSCR * RW + ND * RW + (P / 32) * sb * (ND + C - 5)) * sizeof(float);
-  stream_bwd_kernel<MAXF><<<T, P, shmem, s>>>(stream, sc, row_off, R, C, grid_x, th, tw, img_w,
-                                              img_h, ft, last, mpos, gacc, gft, gmed, sb, dtab);
+  const int smem = bwd_smem(C, P, sb);
+  // above 48 KB a block's dynamic shared memory must be asked for, once for
+  // each instantiation and device (the most granted so far)
+  static int granted[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > granted[dev]) {
+    e = cudaFuncSetAttribute(stream_bwd_kernel<MAXF>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    granted[dev] = smem;
+  }
+  stream_bwd_kernel<MAXF><<<T, P, smem, s>>>(
+      stream, sc, row_off, R, C, grid_x, th, tw, img_w, img_h, ft, last, mpos, gacc, gft, gmed,
+      sb, dtab);
   return cudaGetLastError();
 }
 
@@ -455,9 +580,7 @@ extern "C" {
 int stream_max_features() { return 32; }
 
 // Shared memory (bytes) of one K4 block for C columns, P pixels, batch sb.
-int stream_bwd_smem(int C, int P, int sb) {
-  return (RW * C + NSCR * RW + ND * RW + (P / 32) * sb * (ND + C - 5)) * (int)sizeof(float);
-}
+int stream_bwd_smem(int C, int P, int sb) { return bwd_smem(C, P, sb); }
 
 int stream_fwd(const float* stream, const float* sc, const int* row_off, int T, int R, int C,
                int grid_x, int th, int tw, float img_w, float img_h, float* acc, float* ft,
@@ -479,9 +602,14 @@ int stream_bwd(const float* stream, const float* sc, const int* row_off, const f
                float img_h, int sb, float* dtab, void* cu_stream) {
   const int F = C - 5;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(cu_stream);
-  if (F >= 0 && F <= 4)
-    return launch_bwd<4>(stream, sc, row_off, ft, last, mpos, gacc, gft, gmed, T, R, C, grid_x,
+  if (th * tw > BWD_THREADS) return (int)cudaErrorInvalidValue;
+  // feature buckets: the configs carry F = 3 and F = 29
+  if (F >= 0 && F <= 3)
+    return launch_bwd<3>(stream, sc, row_off, ft, last, mpos, gacc, gft, gmed, T, R, C, grid_x,
                          th, tw, img_w, img_h, sb, dtab, s);
+  if (F >= 0 && F <= 29)
+    return launch_bwd<29>(stream, sc, row_off, ft, last, mpos, gacc, gft, gmed, T, R, C, grid_x,
+                          th, tw, img_w, img_h, sb, dtab, s);
   if (F >= 0 && F <= 32)
     return launch_bwd<32>(stream, sc, row_off, ft, last, mpos, gacc, gft, gmed, T, R, C, grid_x,
                           th, tw, img_w, img_h, sb, dtab, s);

@@ -3,8 +3,11 @@
 Each source is compiled at first use with ``nvcc`` into a shared library
 of its own with a plain C interface (``-gencode arch=compute_90a,code=
 sm_90a``), all sources at once in parallel, and loaded with ``ctypes``.
-A library's name carries a hash of its source and flags, so an edited
-kernel is rebuilt.  Nothing here runs at import time.
+A library's name carries a hash of its source, of every header in
+``csrc/`` and of its flags, so an edited kernel or header is rebuilt.
+ptxas's report (registers, shared memory, spill bytes of every kernel) is
+kept beside each library (:func:`ptxas_report`).  Nothing here runs at
+import time.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on PyTorch's current stream, raises on a launch error,
@@ -24,12 +27,17 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # source -> extra flags.  stream.cu keeps multiplies and adds apart so that
 # its discrete decisions round as the plain PyTorch version does (see there).
 SOURCES = {"blend.cu": (), "stream.cu": ("-fmad=false",)}
 SMEM_BUDGET = 46 * 1024   # dynamic shared memory per block, under the 48 KB default
+# K4's budget is above 48 KB (the launch asks for it): its shared copies of
+# the projection terms and the float4 features take 52 KB at F = 29 before
+# any batch, and 3 blocks of 64 KB still fit an SM's 228 KB
+K4_SMEM_BUDGET = 64 * 1024
 RW = 128                  # pairs per stream row
+BWD_THREADS = 256         # most pixels a tile K2 and K4 take (their launch bounds)
 
 # kernel launches since the last reset (one per launch, nowhere else)
 launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0}
@@ -58,8 +66,10 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> str:
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, source), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
     h.update(" ".join(NVCC_FLAGS + SOURCES[source]).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"libhierslam_{stem}_{h.hexdigest()[:16]}.so")
@@ -67,9 +77,9 @@ def library_path(source: str) -> str:
 
 def build(verbose: bool = False) -> Dict[str, str]:
     """Compile every source whose library is missing, one ``nvcc`` each,
-    all started together.  ``verbose`` adds ``-Xptxas -v`` (registers,
-    shared memory, spills) and prints the compiler's output.  Returns the
-    library path of each source."""
+    all started together, and keep each build's compiler output (ptxas's
+    report) beside its library.  ``verbose`` prints that output.  Returns
+    the library path of each source."""
     paths = {src: library_path(src) for src in SOURCES}
     todo = {src: p for src, p in paths.items() if not os.path.isfile(p)}
     if not todo:
@@ -79,8 +89,7 @@ def build(verbose: bool = False) -> Dict[str, str]:
     procs = {}
     for src, path in todo.items():
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, *SOURCES[src], *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, os.path.join(CSRC, src)]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCES[src], "-o", tmp, os.path.join(CSRC, src)]
         procs[src] = (cmd, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -91,10 +100,24 @@ def build(verbose: bool = False) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{src} ({proc.returncode}): {' '.join(cmd)}")
         else:
+            # the report first: a library on disk always has one
+            with open(f"{tmp}.log", "w") as f:
+                f.write(out)
+            os.replace(f"{tmp}.log", f"{todo[src]}.log")
             os.replace(tmp, todo[src])
     if failed:
         raise RuntimeError("nvcc failed: " + "; ".join(failed))
     return paths
+
+
+def ptxas_report(source: str) -> str:
+    """nvcc's output (``-Xptxas -v``) of the build of ``source``'s current
+    library; "" where that library is not built."""
+    path = f"{library_path(source)}.log"
+    if not os.path.isfile(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def _load(source: str) -> ctypes.CDLL:
@@ -106,7 +129,9 @@ def _load(source: str) -> ctypes.CDLL:
             lib.blend_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                       _I, _P, _P]
             lib.blend_max_features.argtypes = []
-            for fn in (lib.blend_fwd, lib.blend_bwd, lib.blend_max_features):
+            lib.blend_bwd_smem.argtypes = [_I, _I, _I]
+            for fn in (lib.blend_fwd, lib.blend_bwd, lib.blend_max_features,
+                       lib.blend_bwd_smem):
                 fn.restype = _I
         else:
             lib.stream_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
@@ -183,6 +208,8 @@ def blend_bwd(table, ok, ft, last, mslot, gacc, gft, gmed, grid_x: int, tile_sha
     """K2.  Residuals (final_T, last, mslot) from :func:`blend_fwd`, cotangents
     gacc [T, P, F+2], gft / gmed [T, P] -> d table [T, K, 7+F]."""
     T, K, C, th, tw, P = _tile_args(table, tile_shape)
+    if P > BWD_THREADS:
+        raise ValueError(f"tile of {P} pixels: K2 takes at most {BWD_THREADS}")
     dev = table.device
     F = C - 7
     _check("table", table, torch.float32, (T, K, C), dev)
@@ -196,9 +223,7 @@ def blend_bwd(table, ok, ft, last, mslot, gacc, gft, gmed, grid_x: int, tile_sha
     dtab = torch.empty((T, K, C), dtype=torch.float32, device=dev)
     if T == 0:
         return dtab
-    sb = min(32, (SMEM_BUDGET - 64) // ((P // 32 + 1) * C * 4 + 1))
-    if sb < 1:
-        raise ValueError(f"table width {C} leaves no room for the reduction")
+    sb, _ = bwd_batch("blend.cu", C, P)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _load("blend.cu").blend_bwd(
         table.data_ptr(), ok.data_ptr(), ft.data_ptr(), last.data_ptr(), mslot.data_ptr(),
@@ -208,6 +233,24 @@ def blend_bwd(table, ok, ft, last, mslot, gacc, gft, gmed, grid_x: int, tile_sha
     _raise_on(err, "blend_bwd")
     launch_counts["blend_bwd"] += 1
     return dtab
+
+
+def bwd_batch(source: str, C: int, P: int):
+    """The batch of K2's slots (``blend.cu``) or K4's pairs (``stream.cu``)
+    summed between two passes over the warps, at most 32 and as many as
+    :data:`SMEM_BUDGET` (K2) or :data:`K4_SMEM_BUDGET` allow at table
+    width C and P pixels a tile, and the block's dynamic shared memory in
+    bytes."""
+    lib = _load(source)
+    budget, smem_of = ((SMEM_BUDGET, lib.blend_bwd_smem) if source == "blend.cu" else
+                       (K4_SMEM_BUDGET, lib.stream_bwd_smem))
+    sb = 32
+    while sb > 1 and smem_of(C, P, sb) > budget:
+        sb -= 1
+    smem = smem_of(C, P, sb)
+    if smem > budget:
+        raise ValueError(f"table width {C} leaves no room for the reduction")
+    return sb, smem
 
 
 def _stream_args(stream: torch.Tensor, scalars: torch.Tensor, row_off: torch.Tensor,
@@ -266,6 +309,8 @@ def stream_bwd(stream, scalars, row_off, ft, last, mpos, gacc, gft, gmed, grid_x
     cotangents gacc [T, P, F+2], gft / gmed [T, P] -> d stream
     [R, 128, 5+F], exactly 0 on pad pairs and on rows no tile reads."""
     T, R, C, th, tw, P = _stream_args(stream, scalars, row_off, n_feat, tile_shape)
+    if P > BWD_THREADS:
+        raise ValueError(f"tile of {P} pixels: K4 takes at most {BWD_THREADS}")
     dev = stream.device
     F = n_feat
     _check("ft", ft, torch.float32, (T, P), dev)
@@ -277,14 +322,9 @@ def stream_bwd(stream, scalars, row_off, ft, last, mpos, gacc, gft, gmed, grid_x
     dtab = torch.zeros((R, RW, C), dtype=torch.float32, device=dev)
     if T == 0 or R == 0:
         return dtab
-    lib = _load("stream.cu")
-    sb = 32
-    while sb > 1 and lib.stream_bwd_smem(C, P, sb) > SMEM_BUDGET:
-        sb -= 1
-    if lib.stream_bwd_smem(C, P, sb) > SMEM_BUDGET:
-        raise ValueError(f"stream width {C} leaves no room for the reduction")
+    sb, _ = bwd_batch("stream.cu", C, P)
     img_h, img_w = img_shape
-    err = lib.stream_bwd(
+    err = _load("stream.cu").stream_bwd(
         stream.data_ptr(), scalars.data_ptr(), row_off.data_ptr(), ft.data_ptr(),
         last.data_ptr(), mpos.data_ptr(), gacc.data_ptr(), gft.data_ptr(), gmed.data_ptr(),
         T, R, C, grid_x, th, tw, float(img_w), float(img_h), sb, dtab.data_ptr(),

@@ -200,9 +200,10 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
                     and it <= prune_cfg.stop_after):
                 reset = float(np.log(0.01 / 0.99))
                 if packed:
-                    # active rows only: a removed row keeps its sentinel
-                    gp = {"table": rs.set_logit(gp["table"], variables["active"], reset)}
+                    # every row, as the JAX packed path does: rows a prune or
+                    # the phase-start fold gave the sentinel logit come back
                     every = torch.ones_like(variables["active"])
+                    gp = {"table": rs.set_logit(gp["table"], every, reset)}
                     opt = optim.AdamState(
                         mu={"table": rs.set_logit(opt.mu["table"], every, 0.0)},
                         nu={"table": rs.set_logit(opt.nu["table"], every, 0.0)},

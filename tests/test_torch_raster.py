@@ -15,6 +15,7 @@ closed-form ``blend_bwd_plain`` for K2).  Tolerances:
 The CUDA kernels themselves run only on the card: ``test_kernels_on_card``
 compares them with the plain versions there and skips here.
 """
+import os
 import sys
 
 import jax
@@ -334,6 +335,25 @@ def test_rasterize_needs_cuda_unless_cpu():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trast.rasterize(*_scene_inputs(scene), tc)
+
+
+def test_kernel_library_name_follows_source_headers_and_flags(tmp_path, monkeypatch):
+    """A kernel library is named by a hash of its source, of every header in
+    csrc/ (blend.cu and stream.cu include reduce.cuh) and of its flags, so
+    an edit to any of them builds a new library instead of loading a stale
+    one.  Pure file hashing: runs without nvcc."""
+    from hierslam_torch.ops import kernels
+
+    for name in ("blend.cu", "stream.cu", "reduce.cuh"):
+        (tmp_path / name).write_bytes(open(os.path.join(kernels.CSRC, name), "rb").read())
+    monkeypatch.setattr(kernels, "CSRC", str(tmp_path))
+    before = {src: kernels.library_path(src) for src in kernels.SOURCES}
+    assert before == {src: kernels.library_path(src) for src in kernels.SOURCES}
+    (tmp_path / "reduce.cuh").write_text((tmp_path / "reduce.cuh").read_text() + "\n// edit\n")
+    after = {src: kernels.library_path(src) for src in kernels.SOURCES}
+    assert all(after[src] != before[src] for src in kernels.SOURCES)
+    monkeypatch.setitem(kernels.SOURCES, "stream.cu", ())   # without -fmad=false
+    assert kernels.library_path("stream.cu") != after["stream.cu"]
 
 
 @pytest.mark.cuda

@@ -125,35 +125,63 @@ def test_stream_mapper_matches():
         np.testing.assert_allclose(mt[k].numpy(), np.asarray(mj[k]), atol=1e-3, err_msg=k)
 
 
-def test_stream_mapper_opacity_reset_keeps_removed_rows():
-    """An opacity reset in the packed mapper resets the active rows' logits
-    and their moments; rows a prune removed keep the sentinel (the JAX
-    packed path would revive them: ROADMAP.md, faults)."""
-    _, tc = cameras()
+def test_stream_mapper_opacity_reset_matches():
+    """An opacity reset in the packed mapper writes the reset logit into
+    every row of the table and zeroes the logit column's moments, as the
+    JAX packed path does: rows a prune removed at iteration 0 come back at
+    log(0.01/0.99) in both packages (and stay inactive in ``variables``).
+    Tolerances as in ``test_stream_mapper_matches``."""
+    jc, tc = cameras()
     pn = synthetic_map(seed=5, n=200)
-    im, dep = render_gt(pn, np.array([1.0, 0, 0, 0], np.float32), np.zeros(3, np.float32),
-                        cameras()[0])
+    im, dep = render_gt(pn, np.array([1.0, 0, 0, 0], np.float32), np.zeros(3, np.float32), jc)
+    # the start is perturbed off the ground truth as in the test above: at
+    # the ground truth the L1 residuals are float32 noise between the two
+    # renderers, and Adam with eps=1e-15 steps a full lr on their sign
+    rng = np.random.default_rng(7)
     start = dict(pn)
+    start["means3D"] = pn["means3D"] + 0.02 * rng.normal(size=(200, 3)).astype(np.float32)
+    start["rgb_colors"] = np.clip(pn["rgb_colors"] + 0.3 * rng.normal(size=(200, 3)),
+                                  0, 1).astype(np.float32)
     start["logit_opacities"] = pn["logit_opacities"].copy()
     start["logit_opacities"][:20] = -8.0            # pruned at iteration 0
     variables = {k: np.array(v) for k, v in JG.empty_variables(200).items()}
     variables["active"][:] = True
+    variables["n_active"] = np.asarray(200, np.int32)
     variables["scene_radius"] = np.asarray(3.0, np.float32)
-    pt0, vt0, _, _ = from_jax_numpy(start, variables)
+    window = {"im": im[None], "depth": dep[None], "time_idx": np.zeros(1, np.int32)}
+    rand_idx = np.zeros(3, np.int32)
+    lcfg = dict(use_sil_for_loss=False, sil_thres=0.5)
     lrs = {"means3D": 1e-4, "rgb_colors": 2.5e-3, "logit_opacities": 0.05, "log_scales": 1e-3}
-    prune = tmap.PruneConfig(start_after=0, stop_after=2, prune_every=2, reset_opacities=True,
-                             reset_opacities_every=2)
-    mapper = tmap.make_mapper(tc, tloss.LossConfig(use_sil_for_loss=False, sil_thres=0.5),
-                              trast.RasterConfig(**RC, backend="stream", stream_cap=512), lrs, 3,
-                              prune, device="cpu")
-    win = {"im": torch.as_tensor(im[None]), "depth": torch.as_tensor(dep[None]),
-           "time_idx": torch.zeros(1, dtype=torch.int64)}
-    pt, vt, _, _, _ = mapper(pt0, vt0, win, np.zeros(3, np.int64), None, None)
-    logit = pt["logit_opacities"][:, 0]
+    rc = dict(RC, backend="stream", stream_cap=512)
+    prune = dict(start_after=0, stop_after=2, prune_every=2, reset_opacities=True,
+                 reset_opacities_every=2)
+    mapper_j = jmap.make_mapper(jc, jloss.LossConfig(**lcfg), JRasterConfig(**rc), lrs, 3,
+                                jmap.PruneConfig(**prune))
+    pj, vj, _, _, lj = mapper_j({k: jnp.asarray(v) for k, v in start.items()},
+                                {k: jnp.asarray(v) for k, v in variables.items()},
+                                {k: jnp.asarray(v) for k, v in window.items()},
+                                jnp.asarray(rand_idx), None, None)
+    pt0, vt0, _, _ = from_jax_numpy(start, variables)
+    mapper_t = tmap.make_mapper(tc, tloss.LossConfig(**lcfg), trast.RasterConfig(**rc), lrs, 3,
+                                tmap.PruneConfig(**prune), device="cpu")
+    win_t = {k: torch.as_tensor(np.array(v)) for k, v in window.items()}
+    pt, vt, _, _, lt = mapper_t(pt0, vt0, win_t, rand_idx, None, None)
+
+    np.testing.assert_allclose(float(lt["loss"][0]), float(lj["loss"][0]), rtol=1e-5)
+    for k in ("loss", "im", "depth"):
+        np.testing.assert_allclose(lt[k].numpy(), np.asarray(lj[k]), rtol=1e-2, err_msg=k)
+    np.testing.assert_array_equal(vt["active"].numpy(), np.asarray(vj["active"]))
     assert (~vt["active"][:20]).all() and vt["active"][20:].all()
-    assert (logit[:20] == -100.0).all()
-    # reset at iteration 2, then one Adam step of at most ~lr from fresh moments
-    assert (logit[20:] - float(np.log(0.01 / 0.99))).abs().max() < 0.06
+    # the pruned rows: revived by the reset at iteration 2, then one Adam
+    # step from zeroed moments on a zero gradient (they were sentinel rows
+    # when the gradient was taken), so exactly the reset logit on both sides
+    lo_t, lo_j = pt["logit_opacities"].numpy()[:, 0], np.asarray(pj["logit_opacities"])[:, 0]
+    reset = np.float32(np.log(0.01 / 0.99))
+    np.testing.assert_array_equal(lo_t[:20], lo_j[:20])
+    np.testing.assert_array_equal(lo_j[:20], np.full(20, reset))
+    for k in ("means3D", "rgb_colors", "log_scales", "logit_opacities"):
+        diff = np.abs(pt[k].numpy() - np.asarray(pj[k]))
+        assert np.quantile(diff, 0.99) < 5e-3 and diff.max() < 0.05, (k, diff.max())
 
 
 def _iter_records(path, phase):

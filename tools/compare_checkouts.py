@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Compare checkouts of this repository on one card, alternating between them.
+
+    python3 tools/compare_checkouts.py DIR [DIR ...] [--kernel-rounds N]
+        [--reference-runs N] [--deterministic]
+
+Each DIR is a checkout (for example ``git archive`` of another commit,
+unpacked).  Every run is a process of its own, started in DIR, so it uses
+that checkout's ``hierslam_torch`` and kernels.  A kernel round runs
+``chip_smoke.py --kernels`` in each DIR in order and then in reverse
+(A B .. B A) and reads each kernel row's ``ms``.  A reference round runs
+``chip_smoke.reference_phase`` with the ladder mapper (the 96x64 GPU run
+against the CPU run) once in each DIR, in the same alternating order, and
+reads its relative tracking-loss and mapping-loss differences and its
+trajectory difference.  ``--deterministic`` runs the reference rounds with
+``torch.use_deterministic_algorithms(True)``.  The last line is a JSON
+object of every number read.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+REFERENCE = """
+import os, sys, torch
+sys.path.insert(0, os.getcwd())
+if sys.argv[1] == "1":
+    torch.use_deterministic_algorithms(True, warn_only=True)
+import chip_smoke
+from hierslam_torch.ops import kernels
+kernels.build()
+chip_smoke.reference_phase(os.path.join("configs", "replica", "hierslam_semantic_run.py"),
+                           "pallas")
+"""
+REF_LINE = re.compile(r"tracking loss rel (\S+), mapping loss rel (\S+), trajectory abs (\S+) m")
+
+
+def run(cmd, cwd, env=None):
+    p = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True)
+    if p.returncode != 0:
+        sys.stderr.write(p.stdout[-4000:] + p.stderr[-4000:])
+        raise RuntimeError(f"{' '.join(cmd[:3])} failed in {cwd} ({p.returncode})")
+    return p.stdout
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("dirs", nargs="+", help="checkouts to compare")
+    ap.add_argument("--kernel-rounds", type=int, default=1)
+    ap.add_argument("--reference-runs", type=int, default=0)
+    ap.add_argument("--deterministic", action="store_true")
+    args = ap.parse_args()
+    dirs = [os.path.abspath(d) for d in args.dirs]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    kern = {d: {} for d in dirs}
+    ref = {d: [] for d in dirs}
+    for i in range(args.kernel_rounds):
+        for d in dirs + dirs[::-1]:
+            out = run([sys.executable, "chip_smoke.py", "--kernels"], d)
+            rows = json.loads(next(x for x in out.splitlines() if x.startswith('{"kernels"')))
+            for r in rows["kernels"]:
+                kern[d].setdefault(r["name"], []).append(r["ms"])
+            print(f"[kernels {i}] {d}: " + " ".join(f"{r['name']} {r['ms']}"
+                                                    for r in rows["kernels"]), flush=True)
+    # cuBLAS is deterministic only with a fixed workspace, set before it starts
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8") if args.deterministic else None
+    for i in range(args.reference_runs):
+        for d in (dirs if i % 2 == 0 else dirs[::-1]):
+            out = run([sys.executable, "-c", REFERENCE, str(int(args.deterministic))], d, env)
+            vals = [float(v) for v in REF_LINE.search(out).groups()]
+            ref[d].append(vals)
+            print(f"[reference {i}] {d}: tracking {vals[0]!r} mapping {vals[1]!r} "
+                  f"trajectory {vals[2]!r}", flush=True)
+    for d in dirs:
+        if ref[d]:
+            above = sum(v[0] > 1e-4 for v in ref[d])
+            print(f"[reference] {d}: {above} of {len(ref[d])} runs above 1e-4 in the "
+                  f"tracking loss; distinct readings {len({tuple(v) for v in ref[d]})}",
+                  flush=True)
+    print(json.dumps({"device": smi.stdout.strip(), "deterministic": args.deterministic,
+                      "kernels_ms": kern, "reference": ref}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
