@@ -11,16 +11,38 @@
 // plus a [K] uint8 slot mask.  Pixel p of tile t sits at
 // x = (t % grid_x) * tw + p % tw, y = (t / grid_x) * th + p / tw.
 //
-// K1 design: one block per tile, one thread per pixel.  Slots are staged
-// through shared memory in batches (coalesced loads; every thread then
-// reads the same slot, a broadcast).  Each pixel walks front to back with
-// a running transmittance product and stops at the first slot that would
-// take T below 1e-4 -- the CUDA original's early exit, which the TPU kernel
-// could not take -- and the block stops once all its pixels have.  It saves
-// per pixel for K2 the final T, the index of the last committed slot and the
+// K1 design: one block per tile, one thread per pixel, a warp an 8 x 4
+// block of pixels (cull.cuh).  What bounds it is the work per (warp, slot): a
+// warp pays a slot's test (shared loads, the quadratic form, an exp, three
+// branches) when one lane needs it -- far above the bytes (the table is
+// read once per block) and the 12 operations a pair the roofline counts.
+// So the design removes (warp, slot) visits and instructions per visit:
+// - slots are staged in batches as packed records, two float4 a slot
+//   (x y a b | c opacity depth mask), with the slot mask folded in and the
+//   features in a float4-aligned array that only a commit reads.  The
+//   lane that stages a slot computes, with one division, the warps its
+//   footprint can reach (cull.cuh), and a warp visits only the slots that
+//   hold its bit, found with one ballot per 32 slots (fwd.cuh
+//   walk_records): a masked slot or one that misses the warp costs no load
+//   and no branch;
+// - batches are pipelined with one barrier a batch: each warp brings its
+//   own piece of batch b + 1 into shared memory with cp.async while the
+//   block walks batch b, then packs it into the other of two record and
+//   feature buffers.  A warp copies and packs only its own piece, so the
+//   raw buffer needs no second copy and no barrier of its own.  A batch is
+//   as many slots a warp (32, 16, 8 or 4) as 64 KB of shared memory hold:
+//   256 slots at F = 3 (34 KB, 4 blocks an SM), 128 at F = 29 (58 KB, 3).
+// Each pixel walks front to back with a running transmittance product and
+// stops at the first slot that would take T below 1e-4 -- the CUDA
+// original's early exit, which the TPU kernel could not take -- and the
+// block leaves at the batch barrier once all its pixels have.  It saves per
+// pixel for K2 the final T, the index of the last committed slot and the
 // index of the slot where T crosses 0.5 (the median; -1 if none).
-// What bounds it: exp and FMA issue per (pixel, slot) pair up to the
-// termination point; the table is read once per block.
+// A shape with fewer tiles than the card has SMs (a ladder class of 128
+// tiles of 4,096 slots) runs one block an SM and is bound by the latency of
+// that one block's chain of batches; splitting a tile's slots over blocks
+// is not done here.
+// Not taken: wgmma for the feature sum (see stream.cu).
 //
 // K2 design: per pixel, walk back to front from the saved last committed
 // slot and final T, recovering T before each slot as T_after / (1 - a)
@@ -28,7 +50,10 @@
 // dL/da_i = s_i Tb_i - (S_i + gT T_final) / (1 - a_i), S_i the sum of s_j w_j
 // over committed j > i.  The median cotangent goes to the depth of the slot
 // K1 chose, not to one re-derived from the recovered T (which can fall on
-// the other side of 0.5).  Slots are staged through shared memory in
+// the other side of 0.5).  Which slots a pixel takes (power <= 0, alpha >=
+// 1/255) K2 decides again, with power rounded as K1 rounds it (fwd.cuh
+// blend_power: the plain version's order, no FMA).  Slots are staged through
+// shared memory in
 // batches of sb, a masked slot with opacity 0 (which never passes 1/255).
 // Each tile owns its [K, C] output rows, so the per-slot sum over the
 // tile's pixels is a block reduction with no global atomics: a warp
@@ -50,90 +75,118 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fwd.cuh"
 #include "reduce.cuh"
 
-#define ALPHA_MIN (1.0f / 255.0f)
-#define ALPHA_MAX 0.99f
-#define T_DONE 1e-4f
-#define MEDIAN_DEFAULT 15.0f
+#define K1_SMEM_BUDGET (64 * 1024)  // dynamic shared memory a K1 block may take
 #define BWD_THREADS 256  // most pixels a tile K2 takes
 #define K2_MIN_BLOCKS 3  // K2 blocks an SM must hold: 80 registers, no spill
 
+// K1 staging.  Warp w owns slots w spw .. (w + 1) spw of a batch; nv of them
+// lie inside the table.  stage_copy starts the copy of their rows into the
+// warp's piece of the raw buffer; stage_pack, once they have arrived, packs
+// them into records rec4 [nb][2] and features feat4 [nb][fs4].  okv is the
+// lane's byte of the slot mask.
+__device__ __forceinline__ void stage_pack(const float* s_raw, float4* rec4, float4* feat4, int C,
+                                           int F, int spw, int nv, bool okv, int warp, int lane,
+                                           float tile_x0, float tile_y0, int tw, int th) {
+  hsl::warp_copy_wait();
+  const int fs4 = hsl::feat4_stride(F);
+  if (lane < spw) {
+    const int j = warp * spw + lane;
+    float4 q0 = make_float4(0.f, 0.f, 0.f, 0.f), q1 = q0;  // mask 0: never visited
+    if (lane < nv && okv) {
+      const float* g = s_raw + j * C;
+      const float a = g[2], b = g[3], c = g[4], opa = g[5];
+      const float det = a * c - b * b;
+      const float inv = 1.f / det;
+      // not a positive-definite conic (or a NaN): live for every warp
+      const bool pd = det > 0.f;
+      const float inf = __int_as_float(0x7f800000);
+      const unsigned mask = hsl::warp_mask(g[0], g[1], pd ? c * inv : inf, pd ? a * inv : inf,
+                                           opa, tile_x0, tile_y0, tw, th);
+      q0 = make_float4(g[0], g[1], a, b);
+      q1 = make_float4(c, opa, g[6], __uint_as_float(mask));
+    }
+    rec4[2 * j] = q0;
+    rec4[2 * j + 1] = q1;
+  }
+  for (int i = lane; i < nv * fs4; i += 32) {
+    const int jj = warp * spw + i / fs4;
+    const int q = i % fs4;
+    feat4[jj * fs4 + q] = hsl::feat_quad(s_raw + jj * C + 7, 4 * q, F);
+  }
+}
+
+// Shared memory (bytes) of one K1 block: raw rows of a batch of nb slots,
+// two sets of records (rounded up to 32, what a ballot takes) and two
+// float4-aligned feature copies.
+static int fwd_smem(int C, int nb) {
+  const int nbp = (nb + 31) & ~31;
+  return (nb * C + 2 * nbp * 8 + 2 * nb * 4 * hsl::feat4_stride(C - 7)) * (int)sizeof(float);
+}
+
 template <int MAXF>
-__global__ void blend_fwd_kernel(
-    const float* __restrict__ table, const uint8_t* __restrict__ ok,
-    int K, int C, int F, int grid_x, int th, int tw, int nb,
-    float* __restrict__ acc, float* __restrict__ ft, float* __restrict__ med,
-    int* __restrict__ last, int* __restrict__ mslot) {
-  extern __shared__ float smem[];
-  float* s_tab = smem;                                   // [nb][C]
-  uint8_t* s_ok = reinterpret_cast<uint8_t*>(smem + nb * C);  // [nb]
+__global__ void __launch_bounds__(hsl::FWD_THREADS, hsl::fwd_min_blocks(MAXF))
+blend_fwd_kernel(const float* __restrict__ table, const uint8_t* __restrict__ ok, int K, int C,
+                 int F, int grid_x, int th, int tw, int spw, float* __restrict__ acc,
+                 float* __restrict__ ft, float* __restrict__ med, int* __restrict__ last,
+                 int* __restrict__ mslot) {
+  extern __shared__ float4 smem4[];
   const int tile = blockIdx.x;
   const int P = blockDim.x;
   const int p = threadIdx.x;
-  const float px = (float)((tile % grid_x) * tw + p % tw);
-  const float py = (float)((tile / grid_x) * th + p / tw);
+  const int lane = p & 31;
+  const int warp = p >> 5;
+  const int nb = spw * (P >> 5);   // slots a batch
+  const int nbp = (nb + 31) & ~31;
+  const int fs4 = hsl::feat4_stride(F);
+  float* s_raw = reinterpret_cast<float*>(smem4);  // [nb][C]
+  float4* s_rec = smem4 + nb * C / 4;              // [2][nbp][2]
+  float4* s_feat = s_rec + 2 * nbp * 2;            // [2][nb][fs4]
+  int lx, ly;
+  hsl::thread_pixel(p, tw, lx, ly);
+  const float tile_x0 = (float)((tile % grid_x) * tw);
+  const float tile_y0 = (float)((tile / grid_x) * th);
+  const float px = tile_x0 + (float)lx;
+  const float py = tile_y0 + (float)ly;
   const float* tab_t = table + (size_t)tile * K * C;
   const uint8_t* ok_t = ok + (size_t)tile * K;
+  float* raw_w = s_raw + warp * spw * C;           // this warp's piece
 
-  float a_f[MAXF];
-#pragma unroll
-  for (int c = 0; c < MAXF; ++c) a_f[c] = 0.f;
-  float a_dep = 0.f, a_mass = 0.f;
-  float T = 1.f, medv = MEDIAN_DEFAULT;
-  int lastc = -1, medc = -1;
-  bool done = false;
-
-  for (int base = 0; base < K; base += nb) {
-    const int n = min(nb, K - base);
-    for (int i = p; i < n * C; i += P) s_tab[i] = tab_t[(size_t)base * C + i];
-    for (int i = p; i < n; i += P) s_ok[i] = ok_t[base + i];
-    __syncthreads();
-    if (!done) {
-      for (int j = 0; j < n; ++j) {
-        if (!s_ok[j]) continue;
-        const float* g = s_tab + j * C;
-        const float dx = g[0] - px;
-        const float dy = g[1] - py;
-        const float power = -0.5f * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy;
-        if (power > 0.f) continue;
-        const float alpha = fminf(ALPHA_MAX, g[5] * expf(power));
-        if (alpha < ALPHA_MIN) continue;
-        const float test_T = T * (1.f - alpha);
-        if (test_T < T_DONE) {
-          done = true;
-          break;
-        }
-        const float w = alpha * T;
-#pragma unroll
-        for (int c = 0; c < MAXF; ++c)
-          if (c < F) a_f[c] += g[7 + c] * w;
-        a_dep += g[6] * w;
-        a_mass += w;
-        if (T > 0.5f && test_T < 0.5f) {
-          medv = g[6];
-          medc = base + j;
-        }
-        T = test_T;
-        lastc = base + j;
-      }
-    }
-    // barrier before the next batch overwrites shared memory; the block
-    // leaves once every pixel is done
-    if (__syncthreads_count(!done) == 0) break;
+  // records past nb, which only the ballot reads, hold mask 0
+  for (int i = nb + p; i < nbp; i += P) {
+    s_rec[2 * i + 1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    s_rec[2 * (nbp + i) + 1] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  const size_t pix = (size_t)tile * P + p;
-  float* acc_p = acc + pix * (F + 2);
-#pragma unroll
-  for (int c = 0; c < MAXF; ++c)
-    if (c < F) acc_p[c] = a_f[c];
-  acc_p[F] = a_dep;
-  acc_p[F + 1] = a_mass;
-  ft[pix] = T;
-  med[pix] = medv;
-  last[pix] = lastc;
-  mslot[pix] = medc;
+  hsl::Pixel<MAXF> s;
+  // slots of this warp's piece of the batch at `base` that lie inside the table
+  auto inside = [&](int base) { return max(0, min(spw, K - base - warp * spw)); };
+  int nv = inside(0);
+  bool okv = lane < nv && ok_t[warp * spw + lane];
+  hsl::warp_copy_async(raw_w, tab_t + (size_t)warp * spw * C, nv * C, lane);
+  stage_pack(s_raw, s_rec, s_feat, C, F, spw, nv, okv, warp, lane, tile_x0, tile_y0, tw, th);
+
+  for (int base = 0, b = 0; base < K; base += nb, b ^= 1) {
+    // batch b is packed and the walk of the batch before is over; the
+    // block leaves once every pixel is done
+    if (__syncthreads_count(!s.done) == 0) break;
+    const bool next = base + nb < K;
+    if (next) {
+      nv = inside(base + nb);
+      const size_t first = (size_t)base + nb + warp * spw;
+      okv = lane < nv && ok_t[first + lane];
+      hsl::warp_copy_async(raw_w, tab_t + first * C, nv * C, lane);
+    }
+    hsl::walk_records<MAXF>(s_rec + b * nbp * 2, s_feat + b * nb * fs4, fs4, nbp, base, F, warp,
+                            lane, px, py, s);
+    if (next)
+      stage_pack(s_raw, s_rec + (b ^ 1) * nbp * 2, s_feat + (b ^ 1) * nb * fs4, C, F, spw, nv,
+                 okv, warp, lane, tile_x0, tile_y0, tw, th);
+  }
+
+  hsl::store_pixel<MAXF>(s, (size_t)tile * P + ly * tw + lx, F, acc, ft, med, last, mslot);
 }
 
 template <int MAXF>
@@ -217,11 +270,11 @@ __global__ void __launch_bounds__(BWD_THREADS, K2_MIN_BLOCKS) blend_bwd_kernel(
       if (lo + jj <= mylast) {
         const float dx = g[0] - px;
         const float dy = g[1] - py;
-        const float power = -0.5f * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy;
+        const float power = hsl::blend_power(g[2], g[3], g[4], dx, dy);  // as K1 rounds it
         if (power <= 0.f) {
           const float ep = expf(power);
-          const float alpha = fminf(ALPHA_MAX, g[5] * ep);
-          if (alpha >= ALPHA_MIN) {
+          const float alpha = fminf(hsl::ALPHA_MAX, g[5] * ep);
+          if (alpha >= hsl::ALPHA_MIN) {
             act = true;
             const float u = 1.f - alpha;
             // one reciprocal for both quotients (no discrete test reads T)
@@ -251,7 +304,7 @@ __global__ void __launch_bounds__(BWD_THREADS, K2_MIN_BLOCKS) blend_bwd_kernel(
             const float da = s * Tb - (S + gTT) * inv_u;
             S += s * w;
             float dopa = 0.f, dpow = 0.f;
-            if (alpha < ALPHA_MAX) {
+            if (alpha < hsl::ALPHA_MAX) {
               dopa = ep * da;
               dpow = alpha * da;
             }
@@ -283,13 +336,21 @@ __global__ void __launch_bounds__(BWD_THREADS, K2_MIN_BLOCKS) blend_bwd_kernel(
 }
 
 template <int MAXF>
-static cudaError_t launch_fwd(const float* table, const uint8_t* ok, int T, int K,
-                              int C, int grid_x, int th, int tw, int nb, float* acc,
-                              float* ft, float* med, int* last, int* mslot,
-                              cudaStream_t stream) {
-  const size_t shmem = (size_t)nb * C * sizeof(float) + nb;
-  blend_fwd_kernel<MAXF><<<T, th * tw, shmem, stream>>>(
-      table, ok, K, C, C - 7, grid_x, th, tw, nb, acc, ft, med, last, mslot);
+static cudaError_t launch_fwd(const float* table, const uint8_t* ok, int T, int K, int C,
+                              int grid_x, int th, int tw, float* acc, float* ft, float* med,
+                              int* last, int* mslot, cudaStream_t stream) {
+  const int P = th * tw;
+  // the most slots a warp (a multiple of 4: its rows stay 16-byte aligned)
+  // the shared-memory budget holds
+  int spw = 32;
+  while (spw > 4 && fwd_smem(C, spw * (P / 32)) > K1_SMEM_BUDGET) spw /= 2;
+  const int smem = fwd_smem(C, spw * (P / 32));
+  if (smem > K1_SMEM_BUDGET) return cudaErrorInvalidValue;
+  static int granted[hsl::MAX_DEVICES] = {};
+  const cudaError_t e = hsl::grant_smem(blend_fwd_kernel<MAXF>, smem, granted);
+  if (e != cudaSuccess) return e;
+  blend_fwd_kernel<MAXF><<<T, P, smem, stream>>>(table, ok, K, C, C - 7, grid_x, th, tw, spw,
+                                                 acc, ft, med, last, mslot);
   return cudaGetLastError();
 }
 
@@ -320,15 +381,19 @@ int blend_max_features() { return 32; }
 // Shared memory (bytes) of one K2 block for C columns, P pixels, batch sb.
 int blend_bwd_smem(int C, int P, int sb) { return bwd_smem(C, P, sb); }
 
-int blend_fwd(const float* table, const uint8_t* ok, int T, int K, int C,
-              int grid_x, int th, int tw, int nb, float* acc, float* ft,
-              float* med, int* last, int* mslot, void* stream) {
+int blend_fwd(const float* table, const uint8_t* ok, int T, int K, int C, int grid_x, int th,
+              int tw, float* acc, float* ft, float* med, int* last, int* mslot, void* stream) {
   const int F = C - 7;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (F <= 4)
-    return launch_fwd<4>(table, ok, T, K, C, grid_x, th, tw, nb, acc, ft, med, last, mslot, s);
+  if (th * tw > hsl::FWD_THREADS || !hsl::block_layout(tw, th))
+    return (int)cudaErrorInvalidValue;
+  // feature buckets: the configs carry F = 3 and F = 29
+  if (F <= 3)
+    return launch_fwd<3>(table, ok, T, K, C, grid_x, th, tw, acc, ft, med, last, mslot, s);
+  if (F <= 29)
+    return launch_fwd<29>(table, ok, T, K, C, grid_x, th, tw, acc, ft, med, last, mslot, s);
   if (F <= 32)
-    return launch_fwd<32>(table, ok, T, K, C, grid_x, th, tw, nb, acc, ft, med, last, mslot, s);
+    return launch_fwd<32>(table, ok, T, K, C, grid_x, th, tw, acc, ft, med, last, mslot, s);
   return (int)cudaErrorInvalidValue;
 }
 

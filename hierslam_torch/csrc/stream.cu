@@ -22,18 +22,40 @@
 // cutoff -- round as the plain version does instead of moving with FMA
 // contraction.
 //
-// K3 design: one block per tile, one thread per pixel.  For each of the
-// tile's rows the block copies the row's 128 x C floats into shared memory
-// (float4, coalesced), threads 0-127 project one pair each into an 8-float
-// screen record (x, y, conic a b c, opacity, camera depth, valid) in shared
-// memory, and every pixel walks the 128 pairs with K1's arithmetic
-// (csrc/blend.cu).  A pixel stops at the first pair that would take T below
-// 1e-4 and the block retires once all its pixels have -- which the TPU kernel
-// cannot do.  Saved per pixel for K4: final T, the stream position of the
-// last committed pair and that of the median (T = 0.5) crossing, -1 if none.
-// A tile with no rows writes acc 0, T 1, median 15.
-// What bounds it: exp and multiply-add issue per (pixel, pair) up to the
-// termination point; each row is read once per block.
+// K3 design: one block per tile, one thread per pixel, a warp an 8 x 4
+// block of pixels (cull.cuh).  What bounds it is the work per (warp, pair): a
+// warp pays a pair's test (two shared loads, the quadratic form, an exp,
+// three branches) when one lane needs it, and the commit's F + 2 sums when
+// one lane commits -- far above the bytes (each row is read once per
+// block) and the 12 operations a pair the roofline counts.  So the design
+// removes (warp, pair) visits and instructions per visit:
+// - the projection writes into each pair's screen record the warps its
+//   footprint can reach (cull.cuh: the box of the alpha >= 1/255 ellipse
+//   against each warp's pixel block), and a warp visits only the pairs
+//   that hold its bit, found with one ballot per 32 pairs (fwd.cuh
+//   walk_records): a pad, an invalid pair or one that misses the warp
+//   costs no load and no branch;
+// - a commit reads its features as float4 from a 16-byte-aligned copy
+//   (8 loads at F = 29 where 29 were) and sums with explicit fused
+//   multiply-adds; the tests (power, alpha, T) keep the plain version's
+//   operation order under -fmad=false;
+// - rows are pipelined with one barrier a row: each of warps 0-3 brings
+//   its 32 pairs of row r + 1 into shared memory with cp.async while the
+//   block walks row r, then projects them into the other of two record
+//   and feature buffers.  A warp copies and projects only its own piece of
+//   the raw row, so the raw buffer needs no second copy and no barrier of
+//   its own (58 KB a block at F = 29, 3 blocks an SM).
+// A pixel stops at the first pair that would take T below 1e-4 and the
+// block retires at the row barrier once all its pixels have -- which the
+// TPU kernel cannot do.  Saved per pixel for K4: final T, the stream
+// position of the last committed pair and that of the median (T = 0.5)
+// crossing, -1 if none.  A tile with no rows writes acc 0, T 1, median 15.
+// Not taken: wgmma for the feature sum acc[pixel, f] += w[pixel, pair]
+// feat[pair, f].  Float32 would need three TF32 products, and w is sparse:
+// on the first mapping stream of the flagship run a pixel commits 4.4% of
+// the pair positions it walks (chip_smoke.py prints blended / positions),
+// so a dense 256 x 128 x F product a row would do about twenty times the
+// multiply-adds the commits do, three times over.
 //
 // K4 design: one block per tile, one thread per pixel, rows back to front
 // from the row holding the tile's largest last-committed position.  Each
@@ -79,18 +101,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fwd.cuh"
 #include "reduce.cuh"
 
-#define ALPHA_MIN (1.0f / 255.0f)
-#define ALPHA_MAX 0.99f
-#define T_DONE 1e-4f
-#define MEDIAN_DEFAULT 15.0f
 #define RW 128       // pairs per stream row
 #define NSC 28       // pose + projection scalars
-#define NSCR 8       // screen record: x y a b c opacity depth valid
+#define NSCR 8       // screen record: x y a b c opacity depth, warp mask (cull.cuh)
 #define ND 7         // screen-space gradient terms per pair
 #define BWD_THREADS 256  // most pixels a tile K4 takes
-#define MAX_DEVICES 64   // devices K4's shared-memory grant is tracked for
 // K4 blocks an SM must hold, which sets the register cap (65,536 / (256 x
 // blocks), rounded down to 8): 3 (80 registers) for the buckets that fit
 // that with no spill, F <= 3 and F <= 29; 2 (up to 128) for F <= 32, which
@@ -106,12 +124,15 @@ enum {
 struct Proj {
   float px, py, ca, cb, cc, opa, dep;
   bool valid;
+  unsigned mask;  // warps of the tile the pair can reach, 0 if not valid
   float mcx, mcy, ph_x, ph_y, p_w, inv_z, txc, tyc, j00, j02, j11, j12, s2;
   float cxx, cxy, cyy, det, det_inv;
 };
 
 // In-kernel projection of one raw pair (render_stream.py _project_row and
-// _screen_quantities), shared by K3 and K4.
+// _screen_quantities), shared by K3 and K4.  K3 asks for the footprint cull
+// (CULL); K4, which tests only whether a pair is valid, gets mask 1 for one.
+template <bool CULL>
 __device__ __forceinline__ Proj project_pair(const float* g, const float* sc, float img_w,
                                              float img_h, float tile_x, float tile_y,
                                              float th, float tw) {
@@ -161,6 +182,10 @@ __device__ __forceinline__ Proj project_pair(const float* g, const float* sc, fl
   o.opa = 1.0f / (1.0f + expf(-logit));
   o.dep = mcz;
   o.valid = in_front && det_ok && rect_ok;
+  o.mask = !o.valid ? 0u
+           : CULL   ? hsl::warp_mask(o.px, o.py, o.cxx, o.cyy, o.opa, tile_x * tw, tile_y * th,
+                                     (int)tw, (int)th)
+                    : 1u;
   return o;
 }
 
@@ -176,132 +201,131 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src, float* d
 // so that the 128-bit stores of 8 neighbouring pairs fall in distinct banks.
 __host__ __device__ constexpr int feat_stride(int F) { return ((F + 3) & ~3) + 4; }
 
-// Threads 0..RW-1 project the row's pairs into the shared screen records
-// ([RW][NSCR], read as two float4 a pair) and, in K4 (s_chn given), the
-// chain step's terms and a float4-aligned copy of the features (pads 0).
+// The screen record of one projected pair, two float4.
+__device__ __forceinline__ void store_record(float4* scr4, int j, const Proj& q) {
+  scr4[2 * j] = make_float4(q.px, q.py, q.ca, q.cb);
+  scr4[2 * j + 1] = make_float4(q.cc, q.opa, q.dep, __uint_as_float(q.mask));
+}
+
+// K4: threads 0..RW-1 project the row's pairs into the shared screen records
+// ([RW][NSCR], read as two float4 a pair), the chain step's terms and a
+// float4-aligned copy of the features (pads 0).
 __device__ __forceinline__ void project_row(const float* s_row, const float* s_sc, float* s_scr,
                                             float* s_chn, float* s_feat, int C, int p,
                                             float img_w, float img_h, float tile_x,
                                             float tile_y, float th, float tw) {
   if (p < RW) {
     const float* g = s_row + p * C;
-    const Proj q = project_pair(g, s_sc, img_w, img_h, tile_x, tile_y, th, tw);
-    float4* scr4 = reinterpret_cast<float4*>(s_scr) + 2 * p;
-    scr4[0] = make_float4(q.px, q.py, q.ca, q.cb);
-    scr4[1] = make_float4(q.cc, q.opa, q.dep, q.valid ? 1.0f : 0.0f);
-    if (s_chn) {
-      const int F = C - 5;
-      float4* f4 = reinterpret_cast<float4*>(s_feat + p * feat_stride(F));
-      for (int c = 0; c < F; c += 4)
-        f4[c / 4] = make_float4(g[5 + c], c + 1 < F ? g[6 + c] : 0.f,
-                                c + 2 < F ? g[7 + c] : 0.f, c + 3 < F ? g[8 + c] : 0.f);
-      s_chn[CH_A * RW + p] = q.cxx;
-      s_chn[CH_B * RW + p] = q.cxy;
-      s_chn[CH_C * RW + p] = q.cyy;
-      s_chn[CH_DET * RW + p] = q.det;
-      s_chn[CH_DETI * RW + p] = q.det_inv;
-      s_chn[CH_J00 * RW + p] = q.j00;
-      s_chn[CH_J02 * RW + p] = q.j02;
-      s_chn[CH_J11 * RW + p] = q.j11;
-      s_chn[CH_J12 * RW + p] = q.j12;
-      s_chn[CH_S2 * RW + p] = q.s2;
-      s_chn[CH_INVZ * RW + p] = q.inv_z;
-      s_chn[CH_TXC * RW + p] = q.txc;
-      s_chn[CH_TYC * RW + p] = q.tyc;
-      s_chn[CH_MCX * RW + p] = q.mcx;
-      s_chn[CH_MCY * RW + p] = q.mcy;
-      s_chn[CH_PW * RW + p] = q.p_w;
-      s_chn[CH_PHX * RW + p] = q.ph_x;
-      s_chn[CH_PHY * RW + p] = q.ph_y;
-    }
+    const Proj q = project_pair<false>(g, s_sc, img_w, img_h, tile_x, tile_y, th, tw);
+    store_record(reinterpret_cast<float4*>(s_scr), p, q);
+    const int F = C - 5;
+    float4* f4 = reinterpret_cast<float4*>(s_feat + p * feat_stride(F));
+    for (int c = 0; c < F; c += 4) f4[c / 4] = hsl::feat_quad(g + 5, c, F);
+    s_chn[CH_A * RW + p] = q.cxx;
+    s_chn[CH_B * RW + p] = q.cxy;
+    s_chn[CH_C * RW + p] = q.cyy;
+    s_chn[CH_DET * RW + p] = q.det;
+    s_chn[CH_DETI * RW + p] = q.det_inv;
+    s_chn[CH_J00 * RW + p] = q.j00;
+    s_chn[CH_J02 * RW + p] = q.j02;
+    s_chn[CH_J11 * RW + p] = q.j11;
+    s_chn[CH_J12 * RW + p] = q.j12;
+    s_chn[CH_S2 * RW + p] = q.s2;
+    s_chn[CH_INVZ * RW + p] = q.inv_z;
+    s_chn[CH_TXC * RW + p] = q.txc;
+    s_chn[CH_TYC * RW + p] = q.tyc;
+    s_chn[CH_MCX * RW + p] = q.mcx;
+    s_chn[CH_MCY * RW + p] = q.mcy;
+    s_chn[CH_PW * RW + p] = q.p_w;
+    s_chn[CH_PHX * RW + p] = q.ph_x;
+    s_chn[CH_PHY * RW + p] = q.ph_y;
   }
 }
 
-template <int MAXF>
-__global__ void stream_fwd_kernel(const float* __restrict__ stream, const float* __restrict__ scal,
-                                  const int* __restrict__ row_off, int R, int C, int grid_x,
-                                  int th, int tw, float img_w, float img_h,
-                                  float* __restrict__ acc, float* __restrict__ ft,
-                                  float* __restrict__ med, int* __restrict__ last,
-                                  int* __restrict__ mpos) {
-  extern __shared__ float4 smem4[];
-  float* s_row = reinterpret_cast<float*>(smem4);  // [RW][C]
-  float* s_scr = s_row + RW * C;                   // [RW][NSCR]
-  const float4* scr4 = reinterpret_cast<const float4*>(s_scr);
-  __shared__ float s_sc[NSC];
+// K3: warp w < RW / 32 starts the copy of its 32 pairs of stream row r into
+// its piece of the raw buffer ...
+__device__ __forceinline__ void stage_copy(const float* __restrict__ stream, float* s_raw, int r,
+                                           int C, int warp, int lane) {
+  hsl::warp_copy_async(s_raw + warp * 32 * C, stream + ((size_t)r * RW + warp * 32) * C, 32 * C,
+                       lane);
+}
+
+// ... and, once they have arrived, projects them into screen records
+// rec4 [RW][2] and copies their features to feat4 [RW][fs4].
+__device__ __forceinline__ void stage_project(const float* s_raw, const float* s_sc, float4* rec4,
+                                              float4* feat4, int C, int warp, int lane,
+                                              float img_w, float img_h, float tile_x,
+                                              float tile_y, float th, float tw) {
+  hsl::warp_copy_wait();
   const int F = C - 5;
+  const int fs4 = hsl::feat4_stride(F);
+  const int j = warp * 32 + lane;
+  store_record(rec4, j,
+               project_pair<true>(s_raw + j * C, s_sc, img_w, img_h, tile_x, tile_y, th, tw));
+  for (int i = lane; i < 32 * fs4; i += 32) {
+    const int jj = warp * 32 + i / fs4;
+    const int q = i % fs4;
+    feat4[jj * fs4 + q] = hsl::feat_quad(s_raw + jj * C + 5, 4 * q, F);
+  }
+}
+
+// Shared memory (bytes) of one K3 block for C columns: the raw row, two
+// sets of records and two float4-aligned feature copies.
+static int fwd_smem(int C) {
+  return (RW * C + 2 * RW * NSCR + 2 * RW * 4 * hsl::feat4_stride(C - 5)) * (int)sizeof(float);
+}
+
+template <int MAXF>
+__global__ void __launch_bounds__(hsl::FWD_THREADS, hsl::fwd_min_blocks(MAXF))
+stream_fwd_kernel(const float* __restrict__ stream, const float* __restrict__ scal,
+                  const int* __restrict__ row_off, int R, int C, int grid_x, int th, int tw,
+                  float img_w, float img_h, float* __restrict__ acc, float* __restrict__ ft,
+                  float* __restrict__ med, int* __restrict__ last, int* __restrict__ mpos) {
+  extern __shared__ float4 smem4[];
+  const int F = C - 5;
+  const int fs4 = hsl::feat4_stride(F);
+  float* s_raw = reinterpret_cast<float*>(smem4);  // [RW][C]
+  float4* s_rec = smem4 + RW * C / 4;              // [2][RW][2]
+  float4* s_feat = s_rec + 2 * RW * 2;             // [2][RW][fs4]
+  __shared__ float s_sc[NSC];
   const int tile = blockIdx.x;
   const int P = blockDim.x;
   const int p = threadIdx.x;
+  const int lane = p & 31;
+  const int warp = p >> 5;
   if (p < NSC) s_sc[p] = scal[p];
   const int r0 = row_off[tile];
   const int r1 = min(row_off[tile + 1], R);
   const float tile_x = (float)(tile % grid_x);
   const float tile_y = (float)(tile / grid_x);
-  const float px = (float)((tile % grid_x) * tw + p % tw);
-  const float py = (float)((tile / grid_x) * th + p / tw);
+  int lx, ly;
+  hsl::thread_pixel(p, tw, lx, ly);
+  const float px = (float)((tile % grid_x) * tw + lx);
+  const float py = (float)((tile / grid_x) * th + ly);
+  const bool stager = warp < RW / 32;  // warps 0-3 bring the rows in
 
-  float a_f[MAXF];
-#pragma unroll
-  for (int c = 0; c < MAXF; ++c) a_f[c] = 0.f;
-  float a_dep = 0.f, a_mass = 0.f;
-  float T = 1.f, medv = MEDIAN_DEFAULT;
-  int lastc = -1, medc = -1;
-  bool done = false;
+  hsl::Pixel<MAXF> s;
+  if (stager && r0 < r1) stage_copy(stream, s_raw, r0, C, warp, lane);
+  __syncthreads();  // the scalars are in shared memory
+  if (stager && r0 < r1)
+    stage_project(s_raw, s_sc, s_rec, s_feat, C, warp, lane, img_w, img_h, tile_x, tile_y,
+                  (float)th, (float)tw);
 
   for (int r = r0; r < r1; ++r) {
-    __syncthreads();  // the previous row's records have been read
-    load_row(stream + (size_t)r * RW * C, s_row, C, p, P);
-    __syncthreads();
-    project_row(s_row, s_sc, s_scr, nullptr, nullptr, C, p, img_w, img_h, tile_x, tile_y,
-                (float)th, (float)tw);
-    __syncthreads();
-    if (!done) {
-      for (int j = 0; j < RW; ++j) {
-        const float4 q0 = scr4[2 * j];      // x y a b
-        const float4 q1 = scr4[2 * j + 1];  // c opacity depth valid
-        if (q1.w == 0.0f) continue;
-        const float dx = q0.x - px;
-        const float dy = q0.y - py;
-        const float power = -0.5f * (q0.z * dx * dx + q1.x * dy * dy) - q0.w * dx * dy;
-        if (power > 0.f) continue;
-        const float alpha = fminf(ALPHA_MAX, q1.y * expf(power));
-        if (alpha < ALPHA_MIN) continue;
-        const float test_T = T * (1.f - alpha);
-        if (test_T < T_DONE) {
-          done = true;
-          break;
-        }
-        const float w = alpha * T;
-        const float* feat = s_row + j * C + 5;
-#pragma unroll
-        for (int c = 0; c < MAXF; ++c)
-          if (c < F) a_f[c] += feat[c] * w;
-        const float dep = q1.z;
-        a_dep += dep * w;
-        a_mass += w;
-        if (T > 0.5f && test_T < 0.5f) {
-          medv = dep;
-          medc = r * RW + j;
-        }
-        T = test_T;
-        lastc = r * RW + j;
-      }
-    }
-    if (__syncthreads_count(!done) == 0) break;
+    const int b = (r - r0) & 1;
+    // row r is projected and the walk of row r - 1 is over; the block
+    // leaves once every pixel is done
+    if (__syncthreads_count(!s.done) == 0) break;
+    const bool next = stager && r + 1 < r1;
+    if (next) stage_copy(stream, s_raw, r + 1, C, warp, lane);
+    hsl::walk_records<MAXF>(s_rec + b * RW * 2, s_feat + b * RW * fs4, fs4, RW, r * RW, F, warp,
+                            lane, px, py, s);
+    if (next)
+      stage_project(s_raw, s_sc, s_rec + (b ^ 1) * RW * 2, s_feat + (b ^ 1) * RW * fs4, C, warp,
+                    lane, img_w, img_h, tile_x, tile_y, (float)th, (float)tw);
   }
 
-  const size_t pix = (size_t)tile * P + p;
-  float* acc_p = acc + pix * (F + 2);
-#pragma unroll
-  for (int c = 0; c < MAXF; ++c)
-    if (c < F) acc_p[c] = a_f[c];
-  acc_p[F] = a_dep;
-  acc_p[F + 1] = a_mass;
-  ft[pix] = T;
-  med[pix] = medv;
-  last[pix] = lastc;
-  mpos[pix] = medc;
+  hsl::store_pixel<MAXF>(s, (size_t)tile * P + ly * tw + lx, F, acc, ft, med, last, mpos);
 }
 
 template <int MAXF>
@@ -395,16 +419,16 @@ stream_bwd_kernel(const float* __restrict__ stream, const float* __restrict__ sc
         float w = 0.f;
         bool act = false;
         const float4 q0 = q4[0];  // x y a b
-        const float4 q1 = q4[1];  // c opacity depth valid
-        if (pos <= mylast && q1.w != 0.0f) {
+        const float4 q1 = q4[1];  // c opacity depth mask
+        if (pos <= mylast && __float_as_uint(q1.w) != 0u) {
           const float ca = q0.z, cb = q0.w, cc = q1.x;
           const float dx = q0.x - px;
           const float dy = q0.y - py;
           const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
           if (power <= 0.f) {
             const float ep = expf(power);
-            const float alpha = fminf(ALPHA_MAX, q1.y * ep);
-            if (alpha >= ALPHA_MIN) {
+            const float alpha = fminf(hsl::ALPHA_MAX, q1.y * ep);
+            if (alpha >= hsl::ALPHA_MIN) {
               act = true;
               const float4* f4 = reinterpret_cast<const float4*>(s_feat + j * FS);
               const float dep = q1.z;
@@ -429,7 +453,7 @@ stream_bwd_kernel(const float* __restrict__ stream, const float* __restrict__ sc
               const float da = s * Tb - (S + gTT) * inv_u;
               S = __fmaf_rn(s, w, S);
               float dopa = 0.f, dpow = 0.f;
-              if (alpha < ALPHA_MAX) {
+              if (alpha < hsl::ALPHA_MAX) {
                 dopa = ep * da;
                 dpow = alpha * da;
               }
@@ -533,9 +557,12 @@ static cudaError_t launch_fwd(const float* stream, const float* sc, const int* r
                               int R, int C, int grid_x, int th, int tw, float img_w,
                               float img_h, float* acc, float* ft, float* med, int* last,
                               int* mpos, cudaStream_t s) {
-  const size_t shmem = (size_t)(RW * C + NSCR * RW) * sizeof(float);
-  stream_fwd_kernel<MAXF><<<T, th * tw, shmem, s>>>(stream, sc, row_off, R, C, grid_x, th, tw,
-                                                    img_w, img_h, acc, ft, med, last, mpos);
+  const int smem = fwd_smem(C);
+  static int granted[hsl::MAX_DEVICES] = {};
+  const cudaError_t e = hsl::grant_smem(stream_fwd_kernel<MAXF>, smem, granted);
+  if (e != cudaSuccess) return e;
+  stream_fwd_kernel<MAXF><<<T, th * tw, smem, s>>>(stream, sc, row_off, R, C, grid_x, th, tw,
+                                                   img_w, img_h, acc, ft, med, last, mpos);
   return cudaGetLastError();
 }
 
@@ -554,19 +581,9 @@ static cudaError_t launch_bwd(const float* stream, const float* sc, const int* r
                               float img_h, int sb, float* dtab, cudaStream_t s) {
   const int P = th * tw;
   const int smem = bwd_smem(C, P, sb);
-  // above 48 KB a block's dynamic shared memory must be asked for, once for
-  // each instantiation and device (the most granted so far)
-  static int granted[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static int granted[hsl::MAX_DEVICES] = {};
+  const cudaError_t e = hsl::grant_smem(stream_bwd_kernel<MAXF>, smem, granted);
   if (e != cudaSuccess) return e;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > granted[dev]) {
-    e = cudaFuncSetAttribute(stream_bwd_kernel<MAXF>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    granted[dev] = smem;
-  }
   stream_bwd_kernel<MAXF><<<T, P, smem, s>>>(
       stream, sc, row_off, R, C, grid_x, th, tw, img_w, img_h, ft, last, mpos, gacc, gft, gmed,
       sb, dtab);
@@ -587,9 +604,15 @@ int stream_fwd(const float* stream, const float* sc, const int* row_off, int T, 
                float* med, int* last, int* mpos, void* cu_stream) {
   const int F = C - 5;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(cu_stream);
-  if (F >= 0 && F <= 4)
-    return launch_fwd<4>(stream, sc, row_off, T, R, C, grid_x, th, tw, img_w, img_h, acc, ft,
+  if (th * tw > hsl::FWD_THREADS || th * tw < RW || !hsl::block_layout(tw, th))
+    return (int)cudaErrorInvalidValue;
+  // feature buckets: the configs carry F = 3 and F = 29
+  if (F >= 0 && F <= 3)
+    return launch_fwd<3>(stream, sc, row_off, T, R, C, grid_x, th, tw, img_w, img_h, acc, ft,
                          med, last, mpos, s);
+  if (F >= 0 && F <= 29)
+    return launch_fwd<29>(stream, sc, row_off, T, R, C, grid_x, th, tw, img_w, img_h, acc, ft,
+                          med, last, mpos, s);
   if (F >= 0 && F <= 32)
     return launch_fwd<32>(stream, sc, row_off, T, R, C, grid_x, th, tw, img_w, img_h, acc, ft,
                           med, last, mpos, s);

@@ -31,13 +31,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # source -> extra flags.  stream.cu keeps multiplies and adds apart so that
 # its discrete decisions round as the plain PyTorch version does (see there).
 SOURCES = {"blend.cu": (), "stream.cu": ("-fmad=false",)}
-SMEM_BUDGET = 46 * 1024   # dynamic shared memory per block, under the 48 KB default
+SMEM_BUDGET = 46 * 1024   # K2's dynamic shared memory per block, under the 48 KB default
 # K4's budget is above 48 KB (the launch asks for it): its shared copies of
 # the projection terms and the float4 features take 52 KB at F = 29 before
-# any batch, and 3 blocks of 64 KB still fit an SM's 228 KB
+# any batch, and 3 blocks of 64 KB still fit an SM's 228 KB.  K1 and K3 size
+# their own buffers under the same 64 KB (csrc/blend.cu, csrc/stream.cu).
 K4_SMEM_BUDGET = 64 * 1024
 RW = 128                  # pairs per stream row
-BWD_THREADS = 256         # most pixels a tile K2 and K4 take (their launch bounds)
+TILE_THREADS = 256        # most pixels a tile the kernels take (their launch bounds)
 
 # kernel launches since the last reset (one per launch, nowhere else)
 launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0}
@@ -124,8 +125,7 @@ def _load(source: str) -> ctypes.CDLL:
     if source not in _libs:
         lib = ctypes.CDLL(build()[source])
         if source == "blend.cu":
-            lib.blend_fwd.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                      _P]
+            lib.blend_fwd.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
             lib.blend_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                       _I, _P, _P]
             lib.blend_max_features.argtypes = []
@@ -162,8 +162,9 @@ def _tile_args(table: torch.Tensor, tile_shape):
         raise ValueError("the CUDA blend kernels take CUDA tensors only")
     th, tw = tile_shape
     P = th * tw
-    if P % 32 or P > 1024:
-        raise ValueError(f"tile of {P} pixels: need a multiple of 32, at most 1024")
+    if tw % 8 or th % 4 or P > TILE_THREADS:
+        raise ValueError(f"tile {th} x {tw}: need a multiple of 4 x 8 pixels (the forwards' "
+                         f"warps are 8 x 4 pixel blocks), at most {TILE_THREADS} pixels")
     T, K, C = table.shape
     if C < 7 or C - 7 > _load("blend.cu").blend_max_features():
         raise ValueError(f"table width {C}: need 7 + F columns, F <= "
@@ -192,10 +193,9 @@ def blend_fwd(table: torch.Tensor, ok: torch.Tensor, grid_x: int, tile_shape):
     mslot = torch.empty((T, P), dtype=torch.int32, device=dev)
     if T == 0:
         return acc, ft, med, last, mslot
-    nb = min(256, SMEM_BUDGET // (C * 4 + 1))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _load("blend.cu").blend_fwd(
-        table.data_ptr(), ok.data_ptr(), T, K, C, grid_x, th, tw, nb,
+        table.data_ptr(), ok.data_ptr(), T, K, C, grid_x, th, tw,
         acc.data_ptr(), ft.data_ptr(), med.data_ptr(), last.data_ptr(), mslot.data_ptr(),
         stream,
     )
@@ -208,8 +208,6 @@ def blend_bwd(table, ok, ft, last, mslot, gacc, gft, gmed, grid_x: int, tile_sha
     """K2.  Residuals (final_T, last, mslot) from :func:`blend_fwd`, cotangents
     gacc [T, P, F+2], gft / gmed [T, P] -> d table [T, K, 7+F]."""
     T, K, C, th, tw, P = _tile_args(table, tile_shape)
-    if P > BWD_THREADS:
-        raise ValueError(f"tile of {P} pixels: K2 takes at most {BWD_THREADS}")
     dev = table.device
     F = C - 7
     _check("table", table, torch.float32, (T, K, C), dev)
@@ -259,8 +257,9 @@ def _stream_args(stream: torch.Tensor, scalars: torch.Tensor, row_off: torch.Ten
         raise ValueError("the CUDA stream kernels take CUDA tensors only")
     th, tw = tile_shape
     P = th * tw
-    if P % 32 or P < RW or P > 1024:
-        raise ValueError(f"tile of {P} pixels: need a multiple of 32 in [{RW}, 1024]")
+    if tw % 8 or th % 4 or P < RW or P > TILE_THREADS:
+        raise ValueError(f"tile {th} x {tw}: need a multiple of 4 x 8 pixels (the forwards' "
+                         f"warps are 8 x 4 pixel blocks), {RW} to {TILE_THREADS} pixels")
     max_f = _load("stream.cu").stream_max_features()
     if not 0 <= n_feat <= max_f:
         raise ValueError(f"{n_feat} features: the stream kernels take at most {max_f}")
@@ -309,8 +308,6 @@ def stream_bwd(stream, scalars, row_off, ft, last, mpos, gacc, gft, gmed, grid_x
     cotangents gacc [T, P, F+2], gft / gmed [T, P] -> d stream
     [R, 128, 5+F], exactly 0 on pad pairs and on rows no tile reads."""
     T, R, C, th, tw, P = _stream_args(stream, scalars, row_off, n_feat, tile_shape)
-    if P > BWD_THREADS:
-        raise ValueError(f"tile of {P} pixels: K4 takes at most {BWD_THREADS}")
     dev = stream.device
     F = n_feat
     _check("ft", ft, torch.float32, (T, P), dev)

@@ -84,8 +84,9 @@ def project_pairs(tab: torch.Tensor, sc: torch.Tensor, tile_x, tile_y, img_w: fl
     """Plain form of the kernels' per-pair projection (JAX ``_project_row``
     and ``_screen_quantities``): raw pairs ``[..., 5+F]`` seen from tile
     ``(tile_x, tile_y)`` (broadcast against ``tab[..., 0]``) -> screen x, y,
-    conic a, b, c, opacity, camera depth and the valid mask (in front,
-    det != 0, rect overlaps the tile).  Differentiable in ``tab``; written
+    conic a, b, c, opacity, camera depth, the valid mask (in front,
+    det != 0, rect overlaps the tile) and the covariance diagonal cxx, cyy
+    that K3's footprint cull reads.  Differentiable in ``tab``; written
     in the kernels' operation order."""
     th, tw = tile_shape
     mx, my, mz = tab[..., 0], tab[..., 1], tab[..., 2]
@@ -133,7 +134,7 @@ def project_pairs(tab: torch.Tensor, sc: torch.Tensor, tile_x, tile_y, img_w: fl
         rect_ok = (tile_x >= rminx) & (tile_x < rmaxx) & (tile_y >= rminy) & (tile_y < rmaxy)
         valid = (mcz > 0.2) & det_ok & rect_ok
     return dict(px=px, py=py, ca=ca, cb=cb, cc=cc, opa=torch.sigmoid(logit), dep=mcz,
-                valid=valid)
+                valid=valid, cxx=c_xx, cyy=c_yy)
 
 
 def pack_table(params, sem_w: int) -> torch.Tensor:

@@ -8,6 +8,10 @@ product; a contribution is committed while the transmittance after it
 stays >= 1e-4 (a prefix property, since T only falls); the median depth is
 the depth of the slot where T crosses 0.5 (15.0 if none).  Its autograd is
 the oracle for the closed-form backward in ``ops/render_pallas.py``.
+
+Also here, and called by neither plain blend: the plain version of the
+forwards' per-warp footprint cull and pixel layout (``csrc/cull.cuh``):
+:func:`thread_pixels`, :func:`warp_rects`, :func:`cull_mask`.
 """
 from __future__ import annotations
 
@@ -30,6 +34,76 @@ def pixel_grid(tile_ids: torch.Tensor, tile_shape, grid_x: int):
     px = ((tile_ids % grid_x) * tw)[:, None] + lin[None, :] % tw
     py = ((tile_ids // grid_x) * th)[:, None] + lin[None, :] // tw
     return px.float(), py.float()
+
+
+# the cull's widening (csrc/cull.cuh): on tau, then on each half-width
+CULL_TAU = 1e-3
+CULL_REL = 1.01
+CULL_PX = 0.5
+CULL_WILD = 1e9
+
+
+def _blocks_wide(tile_shape) -> int:
+    """8 x 4 pixel blocks in a row of the tile; the kernels take no tile
+    that is not a multiple of 8 x 4 pixels."""
+    th, tw = tile_shape
+    if tw % 8 or th % 4:
+        raise ValueError(f"tile {th} x {tw}: need a multiple of 4 x 8 pixels")
+    return tw // 8
+
+
+def thread_pixels(tile_shape) -> torch.Tensor:
+    """[P] int64: the row-major pixel index ``y * tw + x`` of each thread of
+    a K1/K3 block; thread ``32 w + l`` is lane ``l`` of warp ``w``, the 8 x 4
+    pixel block at x = 8 (w % (tw / 8)), y = 4 (w / (tw / 8))."""
+    th, tw = tile_shape
+    bw = _blocks_wide(tile_shape)
+    p = torch.arange(th * tw)
+    w, l = p // 32, p % 32
+    return (4 * (w // bw) + l // 8) * tw + 8 * (w % bw) + l % 8
+
+
+def warp_rects(tile_shape) -> torch.Tensor:
+    """[P / 32, 4] int64: the inclusive pixel rectangle (x0, x1, y0, y1),
+    inside the tile, of each warp's 8 x 4 block."""
+    th, tw = tile_shape
+    bw = _blocks_wide(tile_shape)
+    w = torch.arange(th * tw // 32)
+    x0, y0 = 8 * (w % bw), 4 * (w // bw)
+    return torch.stack([x0, x0 + 7, y0, y0 + 3], -1)
+
+
+def conic_cov_diag(ca: torch.Tensor, cb: torch.Tensor, cc: torch.Tensor):
+    """Diagonal (cxx, cyy) of the covariance a conic inverts; infinite
+    (live for every warp) where the conic is not positive definite."""
+    det = ca * cc - cb * cb
+    inf = torch.full_like(det, float("inf"))
+    pd = det > 0.0
+    return torch.where(pd, cc / det, inf), torch.where(pd, ca / det, inf)
+
+
+def cull_mask(x, y, cxx, cyy, opa, tile_x0, tile_y0, tile_shape) -> torch.Tensor:
+    """Plain version of ``csrc/cull.cuh::warp_mask``: for pairs with screen
+    mean ``x, y``, covariance diagonal ``cxx, cyy`` and opacity ``opa``
+    (any shape ``S``) seen from tiles whose first pixel is ``tile_x0,
+    tile_y0`` (broadcast against ``S``), the warps ``[S..., P / 32]`` bool
+    whose pixels the pair can reach.  A pixel takes a pair only if
+    ``opa * exp(power) >= 1/255`` with ``power <= 0``, that is inside the
+    ellipse ``q <= 2 ln(255 opa)``; a warp is live when the ellipse's box,
+    widened by 1e-3 on tau and 1% and half a pixel on each half-width,
+    meets its rectangle.  Conservative: NaN or infinite boxes are live for
+    every warp; an opacity under 1/255 for none."""
+    rects = warp_rects(tile_shape).to(x.device).float()
+    tau = torch.log(255.0 * opa)
+    tau = torch.where(tau < 0.0, torch.zeros_like(tau), tau) + CULL_TAU
+    hx = torch.sqrt(2.0 * tau * cxx) * CULL_REL + CULL_PX
+    hy = torch.sqrt(2.0 * tau * cyy) * CULL_REL + CULL_PX
+    lx, ux = (x - hx - tile_x0)[..., None], (x + hx - tile_x0)[..., None]
+    ly, uy = (y - hy - tile_y0)[..., None], (y + hy - tile_y0)[..., None]
+    miss = (lx > rects[:, 1]) | (ux < rects[:, 0]) | (ly > rects[:, 3]) | (uy < rects[:, 2])
+    tame = ((lx.abs() < CULL_WILD) & (ux.abs() < CULL_WILD) & (ly.abs() < CULL_WILD)
+            & (uy.abs() < CULL_WILD))
+    return (~miss | ~tame) & ~(opa < ALPHA_MIN)[..., None]
 
 
 def blend_terms(tab: torch.Tensor, ok: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
