@@ -41,7 +41,20 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    equal what the config implies with no plain-version call, losses must
    be finite, ``params.npz`` must carry the JAX runner's keys;
 5. ladder: the same config with ``raster.backend="pallas"`` on 3 frames
-   (mapping at t=0 and, after a densify, at t=2), with its own count check.
+   (mapping at t=0 and, after a densify, at t=2), with its own count check;
+6. cli, the disk-to-eval path: the 8 procedural frames written in the
+   Replica semantic layout (the port's JPEG and PNG writers) and read back
+   by the port's loader, which must match the frames; then ``python3 -m
+   hierslam_torch.scripts.run_slam`` in-process on that sequence with the
+   flagship config as shipped (checkpoints every 4 frames), its launch
+   counts (tracking, densify, the t = 0 progress renders and the final
+   eval's renders) and eval row; a second run that resumes at frame 4;
+   K1 against its plain version on the table of the first eval render
+   (F = 29); and ``run_final_eval`` on the GPU against the CPU on the final
+   map of phase 3's stream run.
+
+The launch counts of phases 4-6 include the two t = 0 progress renders (K1
+at each ``bucket_spec`` class) that ``SLAMRunner.step`` makes.
 
 The last two lines of standard output are a JSON object with the kernels'
 numbers and ``{"ok": true, "device": {...}}``.
@@ -52,6 +65,7 @@ import argparse
 import contextlib
 import functools
 import importlib.util
+import io
 import json
 import os
 import statistics
@@ -602,6 +616,7 @@ def room_dataset(n: int, W: int, H: int, f: float, n_frames_arc: int = 200):
     class RoomDataset:
         num_semantic = list(SEM_LEVELS) + [NUM_LEAF]
         num_semantic_class = NUM_LEAF
+        raw_c2w = [fr[2] for fr in frames]           # as a trajectory file holds them
 
         def __len__(self):
             return n
@@ -637,6 +652,7 @@ def reference_phase(cfg_path: str, backend: str):
 
     ds = room_dataset(3, 96, 64, 48.0, n_frames_arc=40)
     traces = {}
+    final = None
     for dev in ("cuda", "cpu"):
         cfg = load_config(cfg_path)
         cfg["raster"].update(backend=backend, bucket_spec=((4, 512), (-1, 256)),
@@ -653,6 +669,8 @@ def reference_phase(cfg_path: str, backend: str):
                 tr.append(r.last_tracking_trace["loss"])
         traces[dev] = (np.stack(tr), r.last_mapping_trace["loss"],
                        r.params["cam_trans"][0].T.cpu().numpy())
+        if dev == "cuda":
+            final = (ds, r.finalize(), r._mlp_numpy(), cfg)
     g, c = traces["cuda"], traces["cpu"]
     rel = np.abs(g[0] - c[0]) / np.abs(c[0])                  # [frames 1.., iterations]
     for i in range(rel.shape[0]):
@@ -674,24 +692,24 @@ def reference_phase(cfg_path: str, backend: str):
           f"{d_track:.6e}, mapping loss rel {d_map:.6e}, trajectory abs {d_traj:.6e} m "
           "(tolerances 1e-2, 1e-2, 1e-3: float32 sums in another order, compounded "
           "over 10 Adam steps)", flush=True)
-    return d_track <= 1e-2 and d_map <= 1e-2 and d_traj <= 1e-3
+    return d_track <= 1e-2 and d_map <= 1e-2 and d_traj <= 1e-3, final
 
 
 RECORD_FRAME = 6   # the frame whose first tracking table is kept
 
 
 @contextlib.contextmanager
-def recording_blend_fwd(seen: list):
-    """While active, the first call of the wrapper ``kernels.blend_fwd`` leaves
-    a copy of its (table, slot mask, grid_x) in ``seen``.  The wrapper is
-    wrapped from here, the package has no hook for it; every call still
-    goes to the kernel."""
+def recording_blend_fwd(seen: list, n_feat: Optional[int] = None):
+    """While active, the first call of the wrapper ``kernels.blend_fwd`` (with
+    ``n_feat`` features, when given) leaves a copy of its (table, slot mask,
+    grid_x) in ``seen``.  The wrapper is wrapped from here, the package has
+    no hook for it; every call still goes to the kernel."""
     from hierslam_torch.ops import kernels
 
     launch = kernels.blend_fwd
 
     def recording(table, ok, grid_x, tile_shape):
-        if not seen:
+        if not seen and (n_feat is None or table.shape[-1] - 7 == n_feat):
             seen.append((table.detach().clone(), ok.clone(), grid_x))
         return launch(table, ok, grid_x, tile_shape)
 
@@ -721,6 +739,33 @@ def tracking_table(cfg_path: str):
     return seen[0]
 
 
+def reset_counts() -> None:
+    """Zero the kernels' launch counts and the plain versions' call counts."""
+    from hierslam_torch.ops import kernels, render_pallas, render_stream
+
+    kernels.reset_launch_counts()
+    for counts in (render_pallas.plain_counts, render_stream.plain_counts):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts():
+    """-> (kernel launches, plain-version calls) since ``reset_counts``."""
+    from hierslam_torch.ops import kernels, render_pallas, render_stream
+
+    return (dict(kernels.launch_counts),
+            dict(render_pallas.plain_counts, **render_stream.plain_counts))
+
+
+def ladder_classes(rc, H: int, W: int) -> int:
+    """The non-empty ``bucket_spec`` classes of a ladder render of raster
+    config ``rc`` at H x W: K1 launches per render."""
+    from hierslam_torch.ops.binning import resolve_bucket_spec
+
+    grid = rc.grid(H, W)
+    return sum(1 for nb, _ in resolve_bucket_spec(rc.spec(), grid[0] * grid[1]) if nb > 0)
+
+
 def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
                map_every: Optional[int] = None, record: Optional[list] = None):
     """Drive ``SLAMRunner.step`` over ``n_frames`` procedural frames at
@@ -732,8 +777,6 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
     import torch
 
     from hierslam_torch.config import load_config
-    from hierslam_torch.ops import kernels, render_pallas, render_stream
-    from hierslam_torch.ops.binning import resolve_bucket_spec
     from hierslam_torch.slam.pipeline import SLAMRunner
 
     t0 = time.time()
@@ -753,10 +796,7 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
     torch.cuda.reset_peak_memory_stats()
     runner = SLAMRunner(cfg, dataset=ds, device="cuda")
 
-    kernels.reset_launch_counts()
-    for counts in (render_pallas.plain_counts, render_stream.plain_counts):
-        for k in counts:
-            counts[k] = 0
+    reset_counts()
     ok = True
     n_track = n_map = n_dens = 0
     t_run = time.time()
@@ -781,21 +821,19 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
         print(line, flush=True)
     torch.cuda.synchronize()
     wall = time.time() - t_run
-    launches = dict(kernels.launch_counts)
-    plain = dict(render_pallas.plain_counts, **render_stream.plain_counts)
+    launches, plain = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     pn = runner.finalize()
     summ = runner.runtime_summary()
 
     it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
+    n_classes = ladder_classes(runner.rc, runner.H, runner.W)
+    n_prog = 2 * n_classes        # the t = 0 progress renders, after tracking and mapping
     if backend == "stream":
-        want = {"blend_fwd": n_track * it_t + n_dens, "blend_bwd": n_track * it_t,
+        want = {"blend_fwd": n_track * it_t + n_dens + n_prog, "blend_bwd": n_track * it_t,
                 "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m}
     else:
-        grid = runner.rc.grid(680, 1200)
-        n_classes = sum(1 for nb, _ in resolve_bucket_spec(runner.rc.spec(), grid[0] * grid[1])
-                        if nb > 0)
-        want = {"blend_fwd": n_track * it_t + n_dens + n_map * it_m * n_classes,
+        want = {"blend_fwd": n_track * it_t + n_dens + n_prog + n_map * it_m * n_classes,
                 "blend_bwd": n_track * it_t + n_map * it_m * n_classes,
                 "stream_fwd": 0, "stream_bwd": 0}
     print(f"{tag} launches: {json.dumps(launches)} expected: {json.dumps(want)} plain calls: "
@@ -828,6 +866,219 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
         os.path.join(workdir, cfg["run_name"], "semantic_decoder.npz"))
     ok &= bool(np.all(np.isfinite(errs)))
     return ok, launches, summ
+
+
+SEQ = "room0"        # the flagship's sequence name (configs/replica/hierslam_semantic_run.py)
+FRAME = dict(W=1200, H=680, f=600.0)     # the flagship's frames (configs/data/replica_semantic.yaml)
+
+
+def write_sequence(root: str, n: int):
+    """Frames 0..n-1 of ``room_dataset`` at 1200x680 in the Replica semantic
+    layout under ``root/room0``: q95 4:2:0 JPEG colour, 16-bit PNG depth
+    (x 6553.5), 8-bit label PNGs of the leaf ids, the raw c2w in
+    ``traj.txt`` and a tree that maps leaf l to the level ids (l mod 2,
+    l mod 3, l mod 5, l mod 7, l mod 9), 26 channels over 102 leaves.
+    Returns (room dataset, seconds to write)."""
+    import numpy as np
+
+    from hierslam_torch.utils.image_io import write_jpeg, write_png
+
+    ds = room_dataset(n, FRAME["W"], FRAME["H"], FRAME["f"])
+    t0 = time.time()
+    seq = os.path.join(root, SEQ)
+    os.makedirs(os.path.join(seq, "results"))
+    os.makedirs(os.path.join(seq, "semantic_class"))
+    for t in range(n):
+        color, depth, _, _, labels = ds[t]
+        write_jpeg(os.path.join(seq, "results", f"frame{t:06d}.jpg"), color, 95)
+        d16 = np.clip(np.round(depth * 6553.5), 0, 65535).astype(np.uint16)
+        write_png(os.path.join(seq, "results", f"depth{t:06d}.png"), d16)
+        write_png(os.path.join(seq, "semantic_class", f"semantic_class_{t}.png"),
+                  labels[-1].astype(np.uint8))
+    with open(os.path.join(seq, "traj.txt"), "w") as f:
+        f.write("\n".join(" ".join(repr(float(v)) for v in c2w.reshape(-1))
+                          for c2w in ds.raw_c2w[:n]))
+    tree = {f"{leaf}_leaf{leaf}": [{str(leaf % k): f"level{i}_{leaf % k}"}
+                                    for i, k in enumerate(SEM_LEVELS)]
+            for leaf in range(NUM_LEAF)}
+    with open(os.path.join(seq, "info_semantic_tree.json"), "w") as f:
+        json.dump(tree, f)
+    return ds, time.time() - t0
+
+
+def check_loader(root: str, ds, n: int) -> bool:
+    """The port's Replica loader on the written sequence against the frames
+    that were written: depth within one PNG step (1/6553.5 m), the leaf row
+    of the labels and K equal, poses within 1e-5 (float32), colour PSNR >=
+    30 dB (a lossy q95 4:2:0 file).  Prints the read time of each item."""
+    import numpy as np
+
+    from hierslam_torch.datasets import get_dataset
+    from hierslam_torch.datasets.base import load_dataset_config
+
+    cfg = load_dataset_config(os.path.join(ROOT, "configs", "data", "replica_semantic.yaml"))
+    cfg.update(sem_mode="tree", num_tree_level=len(SEM_LEVELS))
+    loader = get_dataset(cfg, root, SEQ, start=0, end=-1, stride=1, desired_height=FRAME["H"],
+                         desired_width=FRAME["W"], relative_pose=True)
+    ok = len(loader) == n and loader.num_semantic == list(SEM_LEVELS) + [NUM_LEAF]
+    ms, worst = [], dict(depth=0.0, pose=0.0, psnr=1e9)
+    for t in range(n):
+        t0 = time.time()
+        color, depth, K4, pose, labels = loader[t]
+        ms.append((time.time() - t0) * 1e3)
+        c_ref, d_ref, K_ref, p_ref, l_ref = ds[t]
+        mse = np.mean((color.astype(np.float64) - c_ref.astype(np.float64)) ** 2)
+        worst["psnr"] = min(worst["psnr"], 10 * np.log10(255.0**2 / mse))
+        worst["depth"] = max(worst["depth"], float(np.abs(depth - d_ref).max()))
+        worst["pose"] = max(worst["pose"], float(np.abs(pose - p_ref).max()))
+        ok &= bool(np.array_equal(labels[-1], l_ref[-1])) and bool(np.array_equal(K4, K_ref))
+    ok &= worst["depth"] <= 1 / 6553.5 and worst["pose"] <= 1e-5 and worst["psnr"] >= 30
+    print(f"[cli] loader: {n} items, labels and K equal: {ok}; max depth error "
+          f"{worst['depth']:.3e} m (allowed {1 / 6553.5:.3e}), max pose error "
+          f"{worst['pose']:.3e} (allowed 1e-5), min colour PSNR {worst['psnr']:.2f} dB "
+          f"(allowed >= 30); ms per item (JPEG + 2 PNG decodes): "
+          + " ".join(f"{x:.0f}" for x in ms) + f", median {statistics.median(ms):.0f}",
+          flush=True)
+    return ok
+
+
+def run_cli(args, record=None):
+    """``python3 -m hierslam_torch.scripts.run_slam ARGS`` in this process:
+    -> (return value, printed text, seconds in ``run_final_eval``).  The
+    eval's per-class lines stay in the text; the rest is printed.  With
+    ``record`` (a list), the first F = 29 K1 call of ``run_final_eval``
+    leaves its table there.  The eval ends on host values (its row), so its
+    time needs no synchronize."""
+    from hierslam_torch.scripts import run_slam as cli
+    from hierslam_torch.slam import pipeline
+
+    final_eval = pipeline.run_final_eval
+    eval_s = []
+
+    def timed_eval(*a, **kw):
+        t0 = time.time()
+        with (recording_blend_fwd(record, n_feat=3 + sum(SEM_LEVELS)) if record is not None
+              else contextlib.nullcontext()):
+            out = final_eval(*a, **kw)
+        eval_s.append(time.time() - t0)
+        return out
+
+    buf = io.StringIO()
+    pipeline.run_final_eval = timed_eval
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = cli.main(args)
+    finally:
+        pipeline.run_final_eval = final_eval
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if not line.startswith((" semantic label", "current frame", "mean_iou")):
+            print(f"[cli]   {line}", flush=True)
+    return out, text, eval_s[0]
+
+
+def eval_row(text: str):
+    """The numbers of the eval row printed under its header, or None."""
+    lines = text.splitlines()
+    head = [i for i, ln in enumerate(lines) if ln.startswith("[ATE RMSE cm] [PSNR]")]
+    if not head or head[-1] + 1 >= len(lines):
+        return None
+    return [float(x) for x in lines[head[-1] + 1].split()]
+
+
+def cli_phase(cfg_path: str):
+    """Phase 6 (the module docstring).  Returns (ok, launches, recorded eval
+    table or None)."""
+    import numpy as np
+
+    from hierslam_torch.config import load_config, raster_config
+
+    n = 8
+    root = tempfile.mkdtemp()
+    ds, dt = write_sequence(root, n)
+    print(f"[cli] wrote {n} frames at {FRAME['W']}x{FRAME['H']} to the Replica semantic layout "
+          f"in {dt:.1f} s", flush=True)
+    ok = check_loader(root, ds, n)
+    workdir = os.path.join(root, "experiments")
+    wrapper = os.path.join(root, "run.py")
+    with open(wrapper, "w") as f:
+        f.write(
+            "import importlib.util\n"
+            f"spec = importlib.util.spec_from_file_location('flagship', {cfg_path!r})\n"
+            "flagship = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(flagship)\n"
+            "config = flagship.config\n"
+            f"config['workdir'] = {workdir!r}\n"
+            f"config['data'].update(basedir={root!r}, basedir_sem={root!r}, gradslam_data_cfg="
+            f"{os.path.join(ROOT, 'configs', 'data', 'replica_semantic.yaml')!r})\n"
+            "config.update(save_checkpoints=True, checkpoint_interval=4)\n")
+    cfg = load_config(wrapper)
+    run_dir = os.path.join(workdir, cfg["run_name"])
+    record = []
+    reset_counts()
+    t0 = time.time()
+    (pn, summ, res), text, eval_s = run_cli([wrapper], record)
+    launches, plain = read_counts()
+    wall = time.time() - t0
+    row = eval_row(text)
+    good_row = row is not None and len(row) == 8 and np.isfinite(row[:3] + row[4:]).all() \
+        and row[0] < 5.0
+    # tracking on frames 1-7, a densify at t=7, mapping at t=0 and t=7; K1
+    # renders the four classes twice at t=0 (progress) and at eval frames 0, 4
+    it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
+    n_eval = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["eval_every"] == 0)
+    n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
+    n_classes = ladder_classes(raster_config(cfg), FRAME["H"], FRAME["W"])
+    want = {"blend_fwd": (n - 1) * it_t + (n_map - 1) + (2 + n_eval) * n_classes,
+            "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m}
+    files = ("params.npz", "semantic_decoder.npz", "config.py", "params4.npz",
+             "keyframe_time_indices4.npy", "semantic_decoder_4.npz")
+    missing = [f for f in files if not os.path.isfile(os.path.join(run_dir, f))]
+    keys = ("means3D", "rgb_colors", "logit_opacities", "log_scales", "semantic",
+            "unnorm_rotations", "cam_unnorm_rots", "cam_trans", "timestep", "intrinsics",
+            "w2c", "gt_w2c_all_frames", "keyframe_time_indices", "org_width", "org_height")
+    with np.load(os.path.join(run_dir, "params.npz")) as data:
+        missing += [k for k in keys if k not in data]
+    print(f"[cli] run: eval row {row} (ATE < 5 cm: {good_row}); launches "
+          f"{json.dumps(launches)} expected {json.dumps(want)}; plain calls {json.dumps(plain)}; "
+          f"progress_failed {summ['progress_failed']}; missing files or keys {missing}; "
+          f"tracking_iter_ms {summ['tracking_iter_ms']:.3f} mapping_iter_ms "
+          f"{summ['mapping_iter_ms']:.3f} eval_s {eval_s:.2f} wall_s {wall:.1f} (SLAM + eval)",
+          flush=True)
+    ok &= good_row and launches == want and not any(plain.values()) \
+        and summ["progress_failed"] == 0 and not missing and res is not None
+    # resume at frame 4 from the checkpoint the run left
+    with open(wrapper, "a") as f:
+        f.write("config.update(load_checkpoint=True, checkpoint_time_idx=4)\n")
+    t0 = time.time()
+    (_, summ2, _), text, _ = run_cli([wrapper])
+    row2 = eval_row(text)
+    good2 = row2 is not None and np.isfinite(row2[:3] + row2[4:]).all() and row2[0] < 5.0
+    print(f"[cli] resumed at frame 4: eval row {row2} (ATE < 5 cm: {good2}), progress_failed "
+          f"{summ2['progress_failed']}, wall_s {time.time() - t0:.1f}", flush=True)
+    ok &= good2 and summ2["progress_failed"] == 0
+    return ok, launches, (record[0] if record else None)
+
+
+def eval_agreement(final) -> bool:
+    """``run_final_eval`` on the GPU (kernels) and on the CPU (plain
+    versions) on the same final map of phase 3's stream run, every frame."""
+    ds, pn, mlp, cfg = final
+    cfg = dict(cfg, eval_every=1)
+    from hierslam_torch.eval.runner import run_final_eval
+
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows[dev] = run_final_eval(ds, pn, cfg, tempfile.mkdtemp(), mlp=mlp, device=dev)
+    tol = dict(psnr=1e-3, ms_ssim=1e-5, depth_l1_cm=1e-4, depth_rmse_cm=1e-4, ate_rmse_cm=1e-6,
+               miou_pct=0.1, mbiou_pct=0.1)
+    diff = {k: abs(rows["cuda"][k] - rows["cpu"][k]) for k in tol}
+    ok = all(diff[k] <= tol[k] for k in tol)
+    print(f"[eval] 96x64 reference map, GPU vs CPU: "
+          + " ".join(f"{k} {rows['cuda'][k]:.6f}/{rows['cpu'][k]:.6f} (|d| {diff[k]:.2e}, "
+                     f"allowed {tol[k]:g})" for k in tol), flush=True)
+    return ok
 
 
 def main() -> int:
@@ -927,9 +1178,12 @@ def main() -> int:
     if not ok:   # after every kernel's line is out
         fail("kernel check at the main path's shapes")
     launches = {k: None for k in kernels.launch_counts}
+    eval_launches = launches
     if not args.kernels:
+        final = {}
         for backend in ("pallas", "stream"):
-            if not reference_phase(cfg_path, backend):
+            good, final[backend] = reference_phase(cfg_path, backend)
+            if not good:
                 fail(f"GPU run with the {backend} mapper disagrees with the CPU reference")
         print(f"[reference] done at {time.time() - t0:.1f} s", flush=True)
         runs = []
@@ -957,10 +1211,30 @@ def main() -> int:
         if not good:
             fail("SLAM phase (ladder mapper)")
         print(f"[slam pallas] done at {time.time() - t0:.1f} s", flush=True)
+        good, eval_launches, eval_table = cli_phase(cfg_path)
+        if not good or eval_table is None:
+            fail("cli phase (disk loaders, run_slam, resume, final eval)")
+        print(f"[cli] done at {time.time() - t0:.1f} s", flush=True)
+        table, slot_ok, gx = eval_table
+        T, K, C = table.shape
+        print(f"[kernels] first eval render's table: T={T} K={K} F={C - 7} grid_x={gx}, "
+              f"{100 * float(slot_ok.float().mean()):.1f}% of the slots live", flush=True)
+        r, good = check_kernels(f"eval table T={T} K={K} F={C - 7}", table, slot_ok, gx, 20,
+                                seed=3, flips_allowed=2)
+        r[0]["path"] = "cli"
+        rows.append(r[0])
+        print(f"[kernels] eval table K1: {r[0]['ms']:.4f} ms, {100 * r[0]['bound_ms'] / r[0]['ms']:.1f}% "
+              f"of its bound", flush=True)
+        if not good:
+            fail("kernel check on the recorded eval table")
+        if not eval_agreement(final["stream"]):
+            fail("final eval on the GPU disagrees with the CPU")
+        print(f"[eval] done at {time.time() - t0:.1f} s", flush=True)
     if args.tracking_table and not os.path.isfile(args.tracking_table):
         torch.save(recorded, args.tracking_table)
     for row in rows:
-        row["launches"] = launches[row.pop("kernel")]
+        row["launches"] = (eval_launches if row.pop("path", None) == "cli"
+                           else launches)[row.pop("kernel")]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

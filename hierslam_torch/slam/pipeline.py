@@ -2,21 +2,27 @@
 
 Tracking every frame (skip frame 0); densify + mapping when ``t == 0`` or
 ``(t + 1) % map_every == 0``; keyframe admission every ``keyframe_every``
-(plus frame 0 and ``num_frames - 2``) gated on a finite GT pose.  The map
-is a fixed-capacity slot buffer; per-gaussian work runs on the live
-prefix rounded up to a bucket, grown on densify overflow, with
-compaction and escalated pruning as the next remedies.
+(plus frame 0 and ``num_frames - 2``) gated on a finite GT pose; progress
+reports (a render of the current frame, scored) at ``t == 0`` and every
+``report_global_progress_every`` frames, after tracking and after mapping;
+checkpoints every ``checkpoint_interval``.  The map is a fixed-capacity
+slot buffer; per-gaussian work runs on the live prefix rounded up to a
+bucket, grown on densify overflow, with compaction and escalated pruning
+as the next remedies.
 
-Frames come from a ``dataset=`` object: ``len()``, and ``ds[t]`` ->
-``(color uint8 HWC, depth [H,W], K 4x4, c2w 4x4, labels [L+1,H,W])``,
-plus ``num_semantic`` / ``num_semantic_class``.  The disk loaders, the
-progress reports (eval), resume and ``run()`` are not ported yet
-(ROADMAP.md, queue 1).
+Frames come from the dataset that ``config["data"]`` names (the Replica
+loaders of ``hierslam_torch.datasets``), or from a ``dataset=`` object:
+``len()``, and ``ds[t]`` -> ``(color uint8 HWC, depth [H,W], K 4x4, c2w
+4x4, labels [L+1,H,W])``, plus ``num_semantic`` / ``num_semantic_class``.
+``run()`` steps every frame from ``start_idx`` (after a resume from a
+checkpoint) with a loader thread ahead of it; ``run_slam`` adds the final
+eval.
 """
 from __future__ import annotations
 
 import os
 import time
+import traceback
 import warnings
 from typing import Dict, List, Optional
 
@@ -27,6 +33,10 @@ from hierslam_torch import resolve_device
 from hierslam_torch.config import apply_defaults, raster_config
 from hierslam_torch.core import gaussians as G
 from hierslam_torch.core.camera import setup_camera
+from hierslam_torch.datasets import get_dataset
+from hierslam_torch.datasets.base import load_dataset_config
+from hierslam_torch.eval.progress import plotting_available, report_progress
+from hierslam_torch.eval.runner import _build_renderer, run_final_eval
 from hierslam_torch.slam import optim
 from hierslam_torch.slam.keyframes import Keyframe, KeyframeStore, keyframe_selection_overlap
 from hierslam_torch.slam.losses import LossConfig, mlp_init
@@ -34,18 +44,20 @@ from hierslam_torch.slam.mapping import PruneConfig, make_densifier, make_mapper
 from hierslam_torch.slam.tracking import apply_gt_pose, est_w2c, make_tracker, propagate_pose
 from hierslam_torch.utils import io as uio
 from hierslam_torch.utils.convert import from_jax_numpy
-from hierslam_torch.utils.logging import RunLogger
+from hierslam_torch.utils.logging import RunLogger, plot_metrics
+from hierslam_torch.utils.prefetch import Prefetcher
 
 
 class SLAMRunner:
     def __init__(self, config: Dict, dataset=None, device="cuda"):
         self.device = dev = resolve_device(device)
-        if dataset is None:
-            raise NotImplementedError(
-                "the port's disk loaders are not ported yet (ROADMAP.md); "
-                "pass dataset= (len() and ds[t] -> (color, depth, K, c2w, labels))"
-            )
         self.config = config = apply_defaults(config)
+        if config.get("use_wandb", False):
+            raise NotImplementedError("wandb logging is not ported (ROADMAP.md)")
+        if config.get("profile"):
+            raise NotImplementedError(
+                "config['profile'] (device traces of listed frames) is not ported; "
+                "tools/profile_torch_slam.py traces a tracked and a mapped frame")
         uio.seed_everything(config["seed"])
         self.rng = np.random.default_rng(config["seed"])
         # random draws come from a CPU generator, so a run draws the same
@@ -54,17 +66,22 @@ class SLAMRunner:
         self.generator.manual_seed(int(config["seed"]))
 
         self.output_dir = os.path.join(config["workdir"], config["run_name"])
-        os.makedirs(self.output_dir, exist_ok=True)
+        self.eval_dir = os.path.join(self.output_dir, "eval")
+        self.plot_dir = os.path.join(self.eval_dir, "plots")
+        os.makedirs(self.eval_dir, exist_ok=True)
 
-        self.dataset = dataset
         dc = config["data"]
+        if dataset is None:
+            dataset, self.semantic = self._dataset_from_config(dc)
+        else:   # an in-memory dataset is semantic when it has label maps
+            self.semantic = bool(getattr(dataset, "num_semantic", 0))
+        self.dataset = dataset
         self.num_frames = dc.get("num_frames", -1)
         if self.num_frames == -1:
             self.num_frames = len(dataset)
 
-        # ---- semantics: follows the dataset's num_semantic ---------------
-        ns = getattr(dataset, "num_semantic", 0)
-        self.semantic = bool(ns)
+        # ---- semantics ----------------------------------------------------
+        ns = dataset.num_semantic if self.semantic else 0
         self.num_semantic, self.sem_levels, self.num_leaf = 0, (), 0
         self.use_mlp = False
         if self.semantic:
@@ -157,6 +174,16 @@ class SLAMRunner:
         self.keyframes = KeyframeStore()
         self.gt_w2c_all: List[np.ndarray] = []
         self.logger = RunLogger(self.output_dir)
+        self._progress_render = _build_renderer(self.camera, rc, with_semantic=False)
+        self.plots = plotting_available()
+        if not self.plots:
+            print("matplotlib is not installed: progress panels and metrics.png are skipped "
+                  "(the progress scalars are logged)", flush=True)
+
+        self.start_idx = 0
+        if config.get("load_checkpoint", False):
+            self.start_idx = int(config["checkpoint_time_idx"])
+            self._resume(self.start_idx)
         self.stats = dict(
             tracking_iter_time_sum=0.0, tracking_iter_time_count=0,
             tracking_frame_time_sum=0.0, tracking_frame_time_count=0,
@@ -164,7 +191,7 @@ class SLAMRunner:
             mapping_frame_time_sum=0.0, mapping_frame_time_count=0,
             densify_added=0, densify_overflow=0,
             bin_overflow_last=0, bin_overflow_max=0,
-            compactions=0, slots_reclaimed=0, emergency_pruned=0,
+            compactions=0, slots_reclaimed=0, emergency_pruned=0, progress_failed=0,
         )
         self.overflow_warn_threshold = int(
             config.get("raster", {}).get("overflow_warn_threshold", 100_000))
@@ -172,6 +199,22 @@ class SLAMRunner:
         self.bucket_headroom = int(config.get("bucket_headroom", 256 * 1024))
         self.bucket = self._choose_bucket()
         self.hole_compact_threshold = int(config.get("hole_compact_threshold", self.bucket_step))
+
+    def _dataset_from_config(self, dc: Dict):
+        """The dataset ``config["data"]`` names, as the JAX runner builds
+        it: the YAML camera config merged under the data keys."""
+        if "gradslam_data_cfg" in dc:
+            data_cfg = {**load_dataset_config(dc["gradslam_data_cfg"]), **dc}
+        else:
+            data_cfg = dict(dc)
+        data_cfg["results_dir"] = self.output_dir
+        ds = get_dataset(
+            config_dict=data_cfg, basedir=dc["basedir"],
+            sequence=os.path.basename(dc["sequence"]), start=dc["start"], end=dc["end"],
+            stride=dc["stride"], desired_height=dc["desired_image_height"],
+            desired_width=dc["desired_image_width"], relative_pose=True,
+        )
+        return ds, "semantic" in data_cfg["dataset_name"]
 
     # ------------------------------------------------------------------
     def load_state(self, params: Dict, variables: Dict, mlp: Optional[Dict] = None,
@@ -237,6 +280,45 @@ class SLAMRunner:
         self._compact(f"escalated prune at frame {t}")
         return True
 
+    def _resume(self, ckpt_t: int):
+        """Reload ``params{t}.npz``, the keyframe indices and the decoder,
+        then re-read frames 0..t-1 to rebuild ``gt_w2c_all`` and the
+        keyframe store.  As in the JAX runner, optimizer moments and the aux
+        variables start from zero (an approximate resume)."""
+        dev = self.device
+        ckpt = uio.load_params(os.path.join(self.output_dir, f"params{ckpt_t}.npz"))
+        n = ckpt["means3D"].shape[0]
+        if n > self.capacity:
+            raise ValueError(f"checkpoint has {n} gaussians > capacity {self.capacity}")
+        params = G.empty_params(self.capacity, self.num_frames, self.num_semantic, dev)
+        for k in G.GAUSSIAN_KEYS:
+            if k in ckpt and k in params:
+                params[k][:n] = torch.as_tensor(ckpt[k], device=dev)
+        params["cam_unnorm_rots"] = torch.as_tensor(ckpt["cam_unnorm_rots"], device=dev)
+        params["cam_trans"] = torch.as_tensor(ckpt["cam_trans"], device=dev)
+        self.params = params
+        variables = G.empty_variables(self.capacity, dev)
+        variables["active"][:n] = True
+        variables["n_active"] = torch.tensor(n, dtype=torch.int64, device=dev)
+        variables["scene_radius"] = self.variables["scene_radius"]
+        if "timestep" in ckpt and ckpt["timestep"].shape[0] == n:
+            variables["timestep"][:n] = torch.as_tensor(ckpt["timestep"], device=dev)
+        self.variables = variables
+
+        kf_idx = np.load(os.path.join(self.output_dir,
+                                      f"keyframe_time_indices{ckpt_t}.npy")).tolist()
+        dec = os.path.join(self.output_dir, f"semantic_decoder_{ckpt_t}.npz")
+        if self.use_mlp and os.path.isfile(dec):
+            self.mlp = {k: torch.as_tensor(v, device=dev)
+                        for k, v in uio.load_semantic_decoder(dec).items()}
+            self.mlp_state = optim.adam_init(self.mlp)
+        for t in range(ckpt_t):
+            im_np, depth_np, label_np, gt_w2c = self._load_frame(t)
+            self.gt_w2c_all.append(gt_w2c)
+            if t in kf_idx:
+                self.keyframes.add(Keyframe(id=t, w2c=self._est_w2c(t), color=im_np,
+                                            depth=depth_np, labels=label_np))
+
     def _load_frame(self, t: int):
         item = self.dataset[t]
         color, depth, _, pose = item[:4]
@@ -261,12 +343,14 @@ class SLAMRunner:
         return est_w2c(self.params, t).cpu().numpy()
 
     # ------------------------------------------------------------------
-    def step(self, time_idx: int):
-        """Process one frame (tracking + optional densify/map/keyframe)."""
+    def step(self, time_idx: int, frame=None):
+        """Process one frame (tracking + optional densify/map/keyframe);
+        ``frame`` is what ``_load_frame(time_idx)`` returns, loaded here
+        when not given."""
         cfg = self.config
         dev = self.device
         t = time_idx
-        im_np, depth_np, label_np, gt_w2c = self._load_frame(t)
+        im_np, depth_np, label_np, gt_w2c = frame if frame is not None else self._load_frame(t)
         self.gt_w2c_all.append(gt_w2c)
         im = torch.as_tensor(im_np, device=dev)
         depth = torch.as_tensor(depth_np, device=dev)
@@ -298,6 +382,10 @@ class SLAMRunner:
                 self.params, torch.as_tensor(gt_w2c, dtype=torch.float32, device=dev), t)
         self.stats["tracking_frame_time_sum"] += time.time() - t0
         self.stats["tracking_frame_time_count"] += 1
+
+        report = t == 0 or (t + 1) % cfg["report_global_progress_every"] == 0
+        if report:
+            self._report_progress(t, im, depth, "tracking", cfg["tracking"]["sil_thres"])
 
         # (B) densify + mapping
         if t == 0 or (t + 1) % cfg["map_every"] == 0:
@@ -386,6 +474,8 @@ class SLAMRunner:
             self.stats["mapping_iter_time_count"] += cfg["mapping"]["num_iters"]
             self.stats["mapping_frame_time_sum"] += dm
             self.stats["mapping_frame_time_count"] += 1
+            if report:
+                self._report_progress(t, im, depth, "mapping", cfg["mapping"]["sil_thres"])
 
         # (C) keyframe admission
         if ((t == 0 or (t + 1) % cfg["keyframe_every"] == 0 or t == self.num_frames - 2)
@@ -402,6 +492,62 @@ class SLAMRunner:
             uio.save_semantic_decoder(self._mlp_numpy(), self.output_dir, suffix=f"_{t}")
 
     # ------------------------------------------------------------------
+    def _report_progress(self, t, im, depth, phase: str, sil_thres: float):
+        """A progress report; a failure is counted, saves an emergency
+        checkpoint and the run goes on, as in the JAX runner."""
+        try:
+            report_progress(self._progress_render, self.params, im, depth, t, self.gt_w2c_all,
+                            sil_thres, self.plot_dir, phase=phase, save_plot=self.plots,
+                            logger=self.logger)
+        except Exception:   # a report must not end the run
+            traceback.print_exc()
+            self.stats["progress_failed"] += 1
+            self.emergency_checkpoint(t)
+            print("Failed to evaluate trajectory.")
+
+    def emergency_checkpoint(self, t: int):
+        """Save a recoverable snapshot (what ``_resume`` reads) on failure."""
+        pn = G.active_params_to_numpy(self.params, self.variables)
+        uio.save_params_ckpt(pn, self.output_dir, t)
+        np.save(os.path.join(self.output_dir, f"keyframe_time_indices{t}.npy"),
+                np.array(self.keyframes.time_indices))
+        uio.save_semantic_decoder(self._mlp_numpy(), self.output_dir, suffix=f"_{t}")
+
+    def run(self, progress: bool = True):
+        """Step frames ``start_idx .. num_frames - 1`` (loaded by a thread
+        two frames ahead), save ``params.npz``, plot metrics.png where
+        matplotlib is installed and print the runtime summary.  A frame
+        that raises leaves an emergency checkpoint."""
+        frames = Prefetcher(self._load_frame, self.start_idx, self.num_frames, depth=2)
+        t_run = time.time()
+        for t, frame in frames:
+            try:
+                self.step(t, frame)
+            except Exception:
+                self.emergency_checkpoint(t)
+                raise
+            if progress:
+                print(f"hierslam-torch: frame {t + 1}/{self.num_frames} "
+                      f"({time.time() - t_run:.1f} s)", flush=True)
+        pn = self.finalize()          # closes the metrics log
+        if self.plots:
+            try:
+                plot_metrics(self.logger.path, os.path.join(self.eval_dir, "metrics.png"),
+                             keys=("tracking_loss", "mapping_loss", "n_active"))
+            except Exception as e:
+                print(f"metrics plot failed: {e}")
+        summ = self.runtime_summary()
+        print(
+            "Average Tracking/Iteration Time: {:.2f} ms\n"
+            "Average Tracking/Frame Time: {:.3f} s\n"
+            "Average Mapping/Iteration Time: {:.2f} ms\n"
+            "Average Mapping/Frame Time: {:.3f} s".format(
+                summ["tracking_iter_ms"], summ["tracking_frame_s"],
+                summ["mapping_iter_ms"], summ["mapping_frame_s"],
+            )
+        )
+        return pn, summ
+
     def _mlp_numpy(self):
         if self.mlp is None:
             return None
@@ -440,5 +586,19 @@ class SLAMRunner:
             "compactions": s["compactions"],
             "slots_reclaimed": s["slots_reclaimed"],
             "emergency_pruned": s["emergency_pruned"],
+            "progress_failed": s["progress_failed"],
             "n_active": int(self.variables["active"].sum()),
         }
+
+
+def run_slam(config: Dict, do_eval: bool = True, device="cuda"):
+    """SLAM over the config's dataset, then (``do_eval``) the final eval.
+    -> (params_np, runtime summary, eval results or None)."""
+    runner = SLAMRunner(config, device=device)
+    params_np, summary = runner.run()
+    results = None
+    if do_eval:
+        results = run_final_eval(runner.dataset, params_np, runner.config, runner.eval_dir,
+                                 mlp=runner._mlp_numpy(), num_frames=runner.num_frames,
+                                 device=device)
+    return params_np, summary, results

@@ -1,6 +1,6 @@
 """Run metrics logger (port-owned copy of ``hierslam_tpu/utils/logging.py``,
 without the optional wandb hook): JSONL records per frame and per
-optimizer iteration."""
+optimizer iteration, and ``plot_metrics`` (needs matplotlib)."""
 from __future__ import annotations
 
 import json
@@ -41,3 +41,25 @@ class RunLogger:
 
     def close(self):
         self._f.close()
+
+
+def plot_metrics(jsonl_path: str, out_png: str, keys=("tracking_loss", "mapping_loss")):
+    """metrics.png: each key's per-frame values from the JSONL log."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    with open(jsonl_path) as f:
+        rows = [json.loads(line) for line in f]
+    fig, axes = plt.subplots(1, len(keys), figsize=(5 * len(keys), 3.5))
+    if len(keys) == 1:
+        axes = [axes]
+    for ax, k in zip(axes, keys):
+        ax.plot([r["step"] for r in rows if k in r], [r[k] for r in rows if k in r])
+        ax.set_title(k)
+        ax.set_xlabel("frame")
+    fig.tight_layout()
+    fig.savefig(out_png, dpi=110)
+    plt.close(fig)
+    return out_png

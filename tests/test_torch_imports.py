@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``hierslam_torch`` and not
-``chip_smoke.py`` imports ``jax`` or ``hierslam_tpu`` (checked on the
-source, so a lazy import inside a function counts too), and every entry
-point refuses to run without CUDA unless the caller passes ``device="cpu"``."""
+``chip_smoke.py`` imports ``jax`` or ``hierslam_tpu``, and none imports
+``cv2``, ``imageio``, ``yaml`` or ``PIL`` (checked on the source, so a lazy
+import inside a function counts too; matplotlib and tqdm are imported only
+inside a gate); and every entry point refuses to run without CUDA unless
+the caller passes ``device="cpu"``."""
 import ast
 import glob
 import os
@@ -12,7 +14,7 @@ import torch
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "hierslam_tpu")
+FORBIDDEN = ("jax", "jaxlib", "hierslam_tpu", "cv2", "imageio", "yaml", "PIL")
 PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "hierslam_torch", "**", "*.py"), recursive=True))
 
 
@@ -57,8 +59,47 @@ def _entry_points():
     }
 
 
+def _disk_entry_points(tmp_path):
+    """The entry points that read a sequence from disk or a finished map,
+    on a fabricated Replica sequence, called with ``**kw``."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fabricate import fabricate_replica
+    from test_e2e import small_config
+
+    from hierslam_torch.eval.runner import run_final_eval, run_nvs_eval
+    from hierslam_torch.slam.pipeline import SLAMRunner, run_slam
+
+    basedir, seq, _ = fabricate_replica(str(tmp_path / "d"), n_frames=2, semantic=True)
+    cfg = small_config(basedir, seq, workdir=str(tmp_path / "w"))
+    cfg["raster"]["backend"] = "pallas"
+    n = 50
+    pn = {"means3D": np.random.default_rng(0).uniform(-1, 1, (n, 3)) + [0, 0, 2.5],
+          "rgb_colors": np.full((n, 3), 0.5), "unnorm_rotations": np.tile([1.0, 0, 0, 0], (n, 1)),
+          "logit_opacities": np.zeros((n, 1)), "log_scales": np.full((n, 1), -3.0),
+          "cam_unnorm_rots": np.tile(np.array([1.0, 0, 0, 0])[None, :, None], (1, 1, 2)),
+          "cam_trans": np.zeros((1, 3, 2)), "w2c": np.eye(4),
+          "gt_w2c_all_frames": np.tile(np.eye(4), (2, 1, 1))}
+    pn = {k: np.asarray(v, np.float32) for k, v in pn.items()}
+
+    def dataset():
+        return SLAMRunner(cfg, device="cpu").dataset
+
+    return {
+        "SLAMRunner_config": lambda **kw: SLAMRunner(cfg, **kw),
+        "run_slam": lambda **kw: run_slam(dict(cfg, data=dict(cfg["data"], num_frames=1)),
+                                          **kw),
+        "run_final_eval": lambda **kw: run_final_eval(dataset(), pn, cfg, str(tmp_path / "e"),
+                                                      **kw),
+        "run_nvs_eval": lambda **kw: run_nvs_eval(dataset(), pn, cfg, str(tmp_path / "n"),
+                                                  **kw),
+    }
+
+
 @pytest.mark.parametrize("name", ["make_tracker", "make_mapper", "make_mapper_stream",
-                                  "make_densifier", "SLAMRunner"])
+                                  "make_densifier", "SLAMRunner", "SLAMRunner_config",
+                                  "run_slam", "run_final_eval", "run_nvs_eval"])
 def test_entry_points_need_cuda_unless_cpu(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
@@ -67,6 +108,12 @@ def test_entry_points_need_cuda_unless_cpu(name, tmp_path):
 
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             SLAMRunner({"workdir": str(tmp_path), "run_name": "x"}, dataset=[])
+        return
+    if name in ("SLAMRunner_config", "run_slam", "run_final_eval", "run_nvs_eval"):
+        run = _disk_entry_points(tmp_path)[name]
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+        assert run(device="cpu") is not None
         return
     make = _entry_points()[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
