@@ -14,9 +14,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    nvcc from ``hierslam_torch/csrc`` (one nvcc per source, in parallel),
    the ptxas report of K1-K4 (registers, shared memory, spill bytes; a
    spill in any instantiation fails the run);
-2. kernels: K1-K4 against their plain PyTorch versions at F = 1, 3, 29
-   and 32 on small inputs (the padding cases of the backwards' warp
-   reduce-scatter); then K1/K2 (ladder blend) at
+2. kernels: K1-K4 against their plain PyTorch versions at F = 1, 3, 29,
+   32, 33, 64, 77 and 128 (every feature bucket's edges, the widest the
+   kernels take; the padding cases of the backwards' warp reduce-scatter)
+   on small inputs (up to 2 pixels of K1 may end on another slot than the
+   plain version, each shown to be a rounding tie, as on the recorded
+   tables below); then K1/K2 (ladder blend) at
    the tracking shape (T=3225, K=512, F=3) and one ladder mapping class
    (T=128, K=4096, F=29), random tables from a seed, and on the run's own
    tracking table (what the first tracking iteration of frame 6 of the
@@ -24,7 +27,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    with ``--kernels``, during a run of frames 0-6 of its own); K3/K4 (stream
    blend) against theirs on the pair stream of a real map (frame 0 of the
    procedural room at 1200x680 back-projected, binned at the frame-0 pose
-   with the flagship raster config) at F=29 and F=3; errors, the pixels
+   with the flagship raster config) at F=29 and F=3, and at F = 77 K1/K2
+   on a ladder class and K3/K4 on frame 0 at 640x480 binned with the
+   ScanNet tree-large config; errors, the pixels
    whose last committed or median slot or pair differs from the plain
    version's (K1, K3), kernel and plain times (median of CUDA-event timings),
    roofline bounds;
@@ -51,7 +56,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    eval's renders) and eval row; a second run that resumes at frame 4;
    K1 against its plain version on the table of the first eval render
    (F = 29); and ``run_final_eval`` on the GPU against the CPU on the final
-   map of phase 3's stream run.
+   map of phase 3's stream run;
+7. scannet, the ScanNet path at F = 77: 6 procedural frames at 640x480
+   with ScanNet's intrinsics written in the ScanNet semantic layout (JPEG
+   colour, depth in mm, per-frame poses, 16-bit raw-id labels) with a
+   raw -> NYU40 TSV, a (2, 3, 4, 7) NYU40 tree TSV and a tree-large TSV of
+   (4, 8, 12, 20, 30) over 550 sparse raw ids, read back by the port's
+   loader and checked; ``run_slam`` in-process on
+   configs/scannet/hierslam_semantic_large_run.py as shipped (74 channels,
+   F = 77, 550 leaves; ``basedir`` from ``SCANNET_DIR``, only ``workdir``
+   and ``num_frames`` set), its launch counts, 0 plain calls, finite
+   losses, 0 dropped pairs, camera-centre error, the sparse-id eval row and
+   artifacts; K1 on its first F = 77 eval table and K3/K4 on its first
+   mapping pair stream against their plain versions, with timings; then
+   configs/scannet/hierslam_semantic_run.py (16 channels, F = 19) on 3 of
+   the frames with the same checks.
 
 The launch counts of phases 4-6 include the two t = 0 progress renders (K1
 at each ``bucket_spec`` class) that ``SLAMRunner.step`` makes.
@@ -87,6 +106,17 @@ NUM_LEAF = 102
 # kernels take transmittance as a sequential product, the plain versions as
 # a cumprod, and sum over pixels in another order (float32)
 TOL = {"acc": 1e-3, "ft": 1e-4, "med": 1e-4, "dtab_rel": 2e-3}
+MAX_F = 128                    # the kernels' widest feature bucket (csrc/fwd.cuh)
+# what params.npz holds (the JAX runner's keys)
+PARAM_KEYS = ("means3D", "rgb_colors", "logit_opacities", "log_scales", "semantic",
+              "unnorm_rotations", "cam_unnorm_rots", "cam_trans", "timestep", "intrinsics",
+              "w2c", "gt_w2c_all_frames", "keyframe_time_indices", "org_width", "org_height")
+# feature counts held on small inputs: each bucket's edges (F <= 3, 29, 32,
+# and the wide bucket to 128) and the padding cases of the reduce-scatter
+SMALL_F = (1, 3, 29, 32, 33, 64, 77, MAX_F)
+SCANNET_LARGE = os.path.join(ROOT, "configs", "scannet", "hierslam_semantic_large_run.py")
+SCANNET_F = 77                 # 3 colours + 74 tree-large channels
+SCANNET_FRAME = dict(W=640, H=480, f=577.590698)   # configs/data/scannet_semantic.yaml
 
 
 def fail(msg: str) -> None:
@@ -304,9 +334,10 @@ def check_kernels(name: str, table, ok, grid_x: int, reps: int, seed: int = 0,
     mask ``ok``; with ``reps`` > 0 also their times and bounds.  ``seed``
     makes K2's cotangents.  Returns (JSON rows or None, ok).
 
-    ``flips_allowed`` is for a table that differs from run to run (the
-    recorded tracking table).  K1 takes transmittance as a sequential
-    product, the plain version as a cumprod; where the two round apart at
+    ``flips_allowed`` is for a table no seed was picked for (the recorded
+    tables; the small seeded ones at every F).  K1 takes transmittance as a
+    sequential product, the plain version as a cumprod; where the two round
+    apart at
     the 1e-4 cutoff, a pixel ends one slot earlier or later, and its outputs
     differ by that slot's weight, which no tolerance bounds; where they
     round apart at 0.5, the median depth is another slot's or none.  At
@@ -507,22 +538,32 @@ def stream_pair_stats(stream, sc, row_off, grid, n_feat, img_shape):
 
 def check_stream_kernels(cfg_path: str, n_feat: int, reps: int, **size):
     """K3/K4 against their plain versions on the pair stream of
-    ``stream_inputs`` (``size``: W, H, f of a smaller frame); with ``reps``
+    ``stream_inputs`` (``size``: W, H, f of another frame); with ``reps``
     > 0 also their times and bounds.  Returns (JSON rows or None, ok)."""
+    stream, sc, lists, pad, grid, img = stream_inputs(cfg_path, n_feat, **size)
+    ro = lists.row_off
+    R = stream.shape[0]
+    name = (f"flagship stream R={R} F={n_feat}" if not size else
+            f"stream {size['W']}x{size['H']} R={R} F={n_feat}")
+    print(f"[kernels] {name}: n_rows {int(lists.n_rows)} n_refs {int(lists.n_refs)} n_dropped "
+          f"{int(lists.n_dropped)} n_sat_masked {int(lists.n_sat_masked)} max rows a tile "
+          f"{int((ro[1:] - ro[:-1]).max())}", flush=True)
+    return check_stream(name, stream, sc, ro, pad, grid, n_feat, img, reps)
+
+
+def check_stream(name: str, stream, sc, ro, pad, grid, n_feat: int, img, reps: int):
+    """K3/K4 against their plain versions on a pair stream [R, 128, 5+F]
+    (scalars ``sc``, row offsets ``ro``, ``pad`` the pairs that must get an
+    exact 0 gradient) of a ``grid`` of tiles over an image of shape
+    ``img``; with ``reps`` > 0 also their times and bounds.  Returns (JSON
+    rows or None, ok)."""
     import torch
 
     from hierslam_torch.ops import kernels, render_stream as rs
 
-    stream, sc, lists, pad, grid, img = stream_inputs(cfg_path, n_feat, **size)
-    ro = lists.row_off
     R, _, C = stream.shape
     T = grid[0] * grid[1]
     F = n_feat
-    name = (f"flagship stream R={R} F={F}" if not size else
-            f"stream {size['W']}x{size['H']} R={R} F={F}")
-    print(f"[kernels] {name}: n_rows {int(lists.n_rows)} n_refs {int(lists.n_refs)} n_dropped "
-          f"{int(lists.n_dropped)} n_sat_masked {int(lists.n_sat_masked)} max rows a tile "
-          f"{int((ro[1:] - ro[:-1]).max())}", flush=True)
     acc, ft, med, last, mpos = kernels.stream_fwd(stream, sc, ro, grid[1], TILE, F, img)
     torch.cuda.synchronize()
     acc_p, ft_p, med_p = rs.blend_stream_fwd_plain(stream, sc, ro, grid, TILE, F, img)
@@ -854,13 +895,10 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
           f"{summ['mapping_iter_ms']:.3f} tracking_frame_s {summ['tracking_frame_s']:.3f} "
           f"mapping_frame_s {summ['mapping_frame_s']:.3f} wall_s {wall:.1f} n_active "
           f"{summ['n_active']} max_memory_allocated_GiB {peak_gib:.2f}", flush=True)
-    keys = ("means3D", "rgb_colors", "logit_opacities", "log_scales", "semantic",
-            "unnorm_rotations", "cam_unnorm_rots", "cam_trans", "timestep", "intrinsics",
-            "w2c", "gt_w2c_all_frames", "keyframe_time_indices", "org_width", "org_height")
     path = os.path.join(workdir, cfg["run_name"], "params.npz")
     with np.load(path) as data:
-        missing = [k for k in keys if k not in data]
-        finite = all(np.isfinite(data[k]).all() for k in keys if k not in missing)
+        missing = [k for k in PARAM_KEYS if k not in data]
+        finite = all(np.isfinite(data[k]).all() for k in PARAM_KEYS if k not in missing)
     print(f"{tag} params.npz: missing keys {missing}, all finite {finite}", flush=True)
     ok &= not missing and finite and os.path.isfile(
         os.path.join(workdir, cfg["run_name"], "semantic_decoder.npz"))
@@ -942,13 +980,14 @@ def check_loader(root: str, ds, n: int) -> bool:
     return ok
 
 
-def run_cli(args, record=None):
+def run_cli(args, record=None, n_feat: int = 3 + sum(SEM_LEVELS)):
     """``python3 -m hierslam_torch.scripts.run_slam ARGS`` in this process:
     -> (return value, printed text, seconds in ``run_final_eval``).  The
     eval's per-class lines stay in the text; the rest is printed.  With
-    ``record`` (a list), the first F = 29 K1 call of ``run_final_eval``
-    leaves its table there.  The eval ends on host values (its row), so its
-    time needs no synchronize."""
+    ``record`` (a list), the first K1 call of ``run_final_eval`` with
+    ``n_feat`` features (the flagship's 29) leaves its table there.  The
+    eval ends on host values (its row), so its time needs no
+    synchronize."""
     from hierslam_torch.scripts import run_slam as cli
     from hierslam_torch.slam import pipeline
 
@@ -957,7 +996,7 @@ def run_cli(args, record=None):
 
     def timed_eval(*a, **kw):
         t0 = time.time()
-        with (recording_blend_fwd(record, n_feat=3 + sum(SEM_LEVELS)) if record is not None
+        with (recording_blend_fwd(record, n_feat=n_feat) if record is not None
               else contextlib.nullcontext()):
             out = final_eval(*a, **kw)
         eval_s.append(time.time() - t0)
@@ -1034,11 +1073,8 @@ def cli_phase(cfg_path: str):
     files = ("params.npz", "semantic_decoder.npz", "config.py", "params4.npz",
              "keyframe_time_indices4.npy", "semantic_decoder_4.npz")
     missing = [f for f in files if not os.path.isfile(os.path.join(run_dir, f))]
-    keys = ("means3D", "rgb_colors", "logit_opacities", "log_scales", "semantic",
-            "unnorm_rotations", "cam_unnorm_rots", "cam_trans", "timestep", "intrinsics",
-            "w2c", "gt_w2c_all_frames", "keyframe_time_indices", "org_width", "org_height")
     with np.load(os.path.join(run_dir, "params.npz")) as data:
-        missing += [k for k in keys if k not in data]
+        missing += [k for k in PARAM_KEYS if k not in data]
     print(f"[cli] run: eval row {row} (ATE < 5 cm: {good_row}); launches "
           f"{json.dumps(launches)} expected {json.dumps(want)}; plain calls {json.dumps(plain)}; "
           f"progress_failed {summ['progress_failed']}; missing files or keys {missing}; "
@@ -1081,6 +1117,258 @@ def eval_agreement(final) -> bool:
     return ok
 
 
+SCANNET_SEQ = "scene0000_00"     # scenes[0] of the ScanNet configs (SCENE_NUM unset)
+SCANNET_CAM = dict(fx=577.590698, fy=578.729797, cx=318.905426, cy=242.683609)  # the YAML's
+SCANNET_LARGE_WIDTHS = (4, 8, 12, 20, 30)   # tree-large levels: 74 channels (bench.py:272)
+SCANNET_LEAVES = 550
+SCANNET_TREE_WIDTHS = (2, 3, 4, 7)          # the NYU40 tree: 16 channels, F = 19
+SCANNET_SMALL = os.path.join(ROOT, "configs", "scannet", "hierslam_semantic_run.py")
+
+
+def scannet_ids():
+    """550 sparse raw ids (1, 4, 7, ..., 1648: ScanNet's raw ids are sparse
+    below about 1,400) and the raw id of each of the room's six
+    primitives."""
+    ids = [1 + 3 * k for k in range(SCANNET_LEAVES)]
+    return ids, [ids[(91 * p + 13) % SCANNET_LEAVES] for p in range(6)]
+
+
+def write_scannet(root: str, n: int):
+    """Frames 0..n-1 of the procedural room at 640x480 with ScanNet's
+    intrinsics in the ScanNet semantic layout under ``root/scene0000_00``:
+    q95 JPEG colour, 16-bit PNG depth in mm, the raw c2w per frame in
+    ``pose/*.txt``, 16-bit ``label-filt`` PNGs of the primitives' raw ids;
+    and, in ``root``, the raw -> NYU40 TSV (NYU40 id 1 + raw mod 40), a
+    4-level NYU40 tree TSV of widths (2, 3, 4, 7) (level ids nyu mod
+    width) and a tree-large TSV of widths (4, 8, 12, 20, 30) over the 550
+    raw ids (level ids the leaf index mod width).  Returns (the frames as
+    (colour, depth, c2w, raw label), seconds to write)."""
+    import numpy as np
+
+    from hierslam_torch.utils.image_io import write_jpeg, write_png
+
+    room = load_module("procedural_room", os.path.join(ROOT, "tools", "procedural_room.py"))
+    ids, prim_raw = scannet_ids()
+    W, H = SCANNET_FRAME["W"], SCANNET_FRAME["H"]
+    t0 = time.time()
+    seq = os.path.join(root, SCANNET_SEQ)
+    for d in ("color", "depth", "pose", "label-filt"):
+        os.makedirs(os.path.join(seq, d))
+    frames = []
+    for t in range(n):
+        color, depth, c2w, prim = room.render_frame(t, W, H, SCANNET_CAM["fx"], SCANNET_CAM["fy"],
+                                                    SCANNET_CAM["cx"], SCANNET_CAM["cy"], 200)
+        raw = np.asarray(prim_raw)[prim].astype(np.uint16)
+        write_jpeg(os.path.join(seq, "color", f"{t}.jpg"), color, 95)
+        write_png(os.path.join(seq, "depth", f"{t}.png"),
+                  np.clip(np.round(depth * 1000.0), 0, 65535).astype(np.uint16))
+        np.savetxt(os.path.join(seq, "pose", f"{t}.txt"), c2w)
+        write_png(os.path.join(seq, "label-filt", f"{t}.png"), raw)
+        frames.append((color, depth, c2w, raw))
+
+    def tsv(name, levels):
+        lines = ["\t".join(f"c{i}" for i in range(17 + 2 * max(len(SCANNET_LARGE_WIDTHS),
+                                                                  len(SCANNET_TREE_WIDTHS))))]
+        for i, r in enumerate(ids):
+            nyu = 1 + r % 40
+            row = [str(r), f"raw{r}", "", "", str(nyu), "", "", f"nyu{nyu}"] + [""] * 9
+            for lv, level in enumerate(levels(i, nyu)):
+                row += [str(level), f"l{lv + 1}_{level}"]
+            lines.append("\t".join(row))
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines))
+
+    tsv("scannetv2-labels.combined.tsv", lambda i, nyu: ())
+    tsv("scannetv2-labels.combined.tree.tsv",
+        lambda i, nyu: [nyu % w for w in SCANNET_TREE_WIDTHS])
+    tsv("scannetv2-labels.combined.tree-large.tsv",
+        lambda i, nyu: [i % w for w in SCANNET_LARGE_WIDTHS])
+    return frames, time.time() - t0
+
+
+def check_scannet_loader(root: str, frames) -> bool:
+    """The port's tree-large ScanNet loader on the written sequence against
+    what was written: K the YAML's; depth within half a millimetre (the
+    PNG's step); poses within 1e-5 of the frames' relative to frame 0;
+    each label level the written raw id's tree ids, the leaf row its index
+    among the TSV's ids; colour PSNR >= 30 dB (a lossy q95 4:2:0 file)."""
+    import numpy as np
+
+    from hierslam_torch.datasets import get_dataset
+    from hierslam_torch.datasets.base import load_dataset_config
+
+    cfg = load_dataset_config(os.path.join(ROOT, "configs", "data", "scannet_semantic.yaml"))
+    cfg.update(sem_mode="tree_large")
+    loader = get_dataset(cfg, root, SCANNET_SEQ, start=0, end=-1, stride=1,
+                         desired_height=SCANNET_FRAME["H"], desired_width=SCANNET_FRAME["W"],
+                         relative_pose=True)
+    ids, _ = scannet_ids()
+    dense = {r: i for i, r in enumerate(ids)}
+    same = (len(loader) == len(frames) and loader.semantic_id == ids
+            and loader.num_semantic == list(SCANNET_LARGE_WIDTHS) + [SCANNET_LEAVES])
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = (SCANNET_CAM[k] for k in ("fx", "fy", "cx", "cy"))
+    inv0 = np.linalg.inv(frames[0][2])
+    ms, worst = [], dict(depth=0.0, pose=0.0, psnr=1e9)
+    for t, (c_ref, d_ref, c2w, raw) in enumerate(frames):
+        t0 = time.time()
+        color, depth, K4, pose, labels = loader[t]
+        ms.append((time.time() - t0) * 1e3)
+        leaf = np.vectorize(dense.get)(raw)
+        want = np.stack([leaf % w for w in SCANNET_LARGE_WIDTHS] + [leaf])
+        same &= bool(np.array_equal(labels, want)) and bool(np.allclose(K4, K, rtol=0, atol=1e-4))
+        mse = np.mean((color.astype(np.float64) - c_ref.astype(np.float64)) ** 2)
+        worst["psnr"] = min(worst["psnr"], 10 * np.log10(255.0**2 / mse))
+        worst["depth"] = max(worst["depth"], float(np.abs(depth - d_ref).max()))
+        worst["pose"] = max(worst["pose"], float(np.abs(pose - inv0 @ c2w).max()))
+    ok = same and worst["depth"] <= 0.5e-3 + 1e-6 and worst["pose"] <= 1e-5 \
+        and worst["psnr"] >= 30
+    print(f"[scannet] loader (tree_large): {len(frames)} items, labels, ids and K as written: "
+          f"{same}; max depth error {worst['depth']:.3e} m (allowed 5e-4), max pose error "
+          f"{worst['pose']:.3e} (allowed 1e-5), min colour PSNR {worst['psnr']:.2f} dB (allowed "
+          f">= 30); ms per item: " + " ".join(f"{x:.0f}" for x in ms), flush=True)
+    return ok
+
+
+@contextlib.contextmanager
+def recording_stream_fwd(seen: list, rows: list, n_feat: int):
+    """While active, the first call of the wrapper ``kernels.stream_fwd``
+    with ``n_feat`` features leaves a copy of its (stream, scalars, row
+    offsets, grid_x, image shape) in ``seen``, and ``rows`` holds the most
+    stream rows any call took.  Every call still goes to the kernel."""
+    from hierslam_torch.ops import kernels
+
+    launch = kernels.stream_fwd
+
+    def recording(stream, scalars, row_off, grid_x, tile_shape, nf, img_shape):
+        if not seen and nf == n_feat:
+            seen.append((stream.detach().clone(), scalars.clone(), row_off.clone(), grid_x,
+                         img_shape))
+        rows[0] = max(rows[0], stream.shape[0])
+        return launch(stream, scalars, row_off, grid_x, tile_shape, nf, img_shape)
+
+    kernels.stream_fwd = recording
+    try:
+        yield
+    finally:
+        kernels.stream_fwd = launch
+
+
+def scannet_run(cfg_path: str, root: str, n: int, n_feat: int):
+    """``run_slam`` (the CLI, in this process) on the written sequence with
+    the ScanNet config ``cfg_path`` as shipped, but for ``workdir`` and
+    ``num_frames``: the data's ``basedir`` comes from ``SCANNET_DIR``.
+    Checks its launch counts, 0 plain calls, finite losses, 0 dropped pairs,
+    the camera-centre error (< 5 cm), the eval row and the artifacts.
+    Returns (ok, launches, recorded (eval table, first mapping stream))."""
+    import numpy as np
+    import torch
+
+    from hierslam_torch.config import load_config, raster_config
+    from hierslam_torch.eval import ate as ate_lib
+
+    tag = f"[scannet {os.path.basename(cfg_path)}]"
+    workdir = os.path.join(root, "experiments")
+    wrapper = os.path.join(root, f"run_{n_feat}.py")
+    with open(wrapper, "w") as f:
+        f.write("import importlib.util\n"
+                f"spec = importlib.util.spec_from_file_location('scannet', {cfg_path!r})\n"
+                "shipped = importlib.util.module_from_spec(spec)\n"
+                "spec.loader.exec_module(shipped)\n"
+                "config = shipped.config\n"
+                f"config['workdir'] = {workdir!r}\n"
+                f"config['data']['num_frames'] = {n}\n")
+    os.environ["SCANNET_DIR"] = root
+    cfg = load_config(wrapper)
+    run_dir = os.path.join(workdir, cfg["run_name"])
+    tables, streams, rows = [], [], [0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    with recording_stream_fwd(streams, rows, n_feat), contextlib.chdir(ROOT):
+        (pn, summ, res), text, eval_s = run_cli([wrapper], tables, n_feat)
+    launches, plain = read_counts()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    row = eval_row(text)
+    good_row = row is not None and len(row) == 8 and np.isfinite(row[:3] + row[4:]).all()
+    it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
+    n_eval = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["eval_every"] == 0)
+    n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
+    n_classes = ladder_classes(raster_config(cfg), SCANNET_FRAME["H"], SCANNET_FRAME["W"])
+    want = {"blend_fwd": (n - 1) * it_t + (n_map - 1) + (2 + n_eval) * n_classes,
+            "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m}
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r[k] for r in recs for k in ("tracking_loss", "mapping_loss") if k in r]
+    dropped = max(r.get("mapping_n_map_bin_dropped", 0) + r.get("mapping_n_grad_dropped", 0)
+                  for r in recs)
+    est = ate_lib.trajectory_from_params(pn["cam_unnorm_rots"], pn["cam_trans"])
+    gt = pn["gt_w2c_all_frames"]
+    errs = [float(np.linalg.norm(np.linalg.inv(est[t])[:3, 3] - np.linalg.inv(gt[t])[:3, 3]))
+            * 100 for t in range(n)]
+    with np.load(os.path.join(run_dir, "params.npz")) as data:
+        missing = [k for k in PARAM_KEYS if k not in data]
+        sem_w = data["semantic"].shape[1] if "semantic" in data else -1
+    with np.load(os.path.join(run_dir, "semantic_decoder.npz")) as dec:
+        dec_shape = tuple(dec["w"].shape)
+    print(f"{tag} {n} frames from disk: eval row {row}; launches {json.dumps(launches)} "
+          f"expected {json.dumps(want)}; plain calls {json.dumps(plain)}; semantic width "
+          f"{sem_w}, decoder {dec_shape}; missing keys {missing}", flush=True)
+    print(f"{tag} losses finite {bool(np.isfinite(losses).all())} ({len(losses)} records); "
+          f"dropped pairs {dropped}; camera-centre error vs GT (cm): "
+          + " ".join(f"{e:.3f}" for e in errs) + " (allowed < 5)", flush=True)
+    print(f"{tag} tracking_iter_ms {summ['tracking_iter_ms']:.3f} mapping_iter_ms "
+          f"{summ['mapping_iter_ms']:.3f} tracking_frame_s {summ['tracking_frame_s']:.3f} "
+          f"mapping_frame_s {summ['mapping_frame_s']:.3f} eval_s {eval_s:.2f} wall_s {wall:.1f} "
+          f"n_active {summ['n_active']} max_memory_allocated_GiB {peak:.2f} stream rows "
+          f"{rows[0]} of {cfg['raster']['stream_rows']}", flush=True)
+    ok = (good_row and launches == want and not any(plain.values()) and not missing
+          and sem_w == n_feat - 3 and dec_shape[1] == n_feat - 3 and res is not None
+          and bool(np.isfinite(losses).all()) and dropped == 0 and max(errs) < 5.0
+          and summ["progress_failed"] == 0 and rows[0] <= cfg["raster"]["stream_rows"])
+    return ok, launches, (tables[0] if tables else None, streams[0] if streams else None)
+
+
+def scannet_phase():
+    """Phase 7 (the module docstring).  Returns (ok, JSON rows, launches of
+    the tree-large run)."""
+    root = tempfile.mkdtemp()
+    n = 6
+    frames, dt = write_scannet(root, n)
+    print(f"[scannet] wrote {n} frames at {SCANNET_FRAME['W']}x{SCANNET_FRAME['H']} to the "
+          f"ScanNet semantic layout in {dt:.1f} s", flush=True)
+    ok = check_scannet_loader(root, frames)
+    good, launches, (table_rec, stream_rec) = scannet_run(SCANNET_LARGE, root, n, SCANNET_F)
+    ok &= good and table_rec is not None and stream_rec is not None
+    rows = []
+    if table_rec is not None:
+        table, slot_ok, gx = table_rec
+        T, K, C = table.shape
+        print(f"[scannet] first eval render's table: T={T} K={K} F={C - 7} grid_x={gx}, "
+              f"{100 * float(slot_ok.float().mean()):.1f}% of the slots live", flush=True)
+        r, good = check_kernels(f"scannet eval table T={T} K={K} F={C - 7}", table, slot_ok, gx,
+                                20, seed=4, flips_allowed=2)
+        rows.append(r[0])
+        ok &= good
+    if stream_rec is not None:
+        from hierslam_torch.config import load_config, raster_config
+        from hierslam_torch.ops import render_stream as rs
+
+        stream, sc, ro, gx, img = stream_rec
+        grid = raster_config(load_config(SCANNET_LARGE)).grid(*img)
+        pad = stream[..., rs.COL_LOGIT] == rs.SENTINEL_LOGIT
+        r, good = check_stream(f"scannet first mapping stream R={stream.shape[0]} F={SCANNET_F}",
+                               stream, sc, ro, pad, grid, SCANNET_F, img, 20)
+        rows += r
+        ok &= good
+    good, _, _ = scannet_run(SCANNET_SMALL, root, 3, 3 + sum(SCANNET_TREE_WIDTHS))
+    ok &= good
+    for row in rows:
+        row["path"] = "scannet"
+    return ok, rows, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", action="store_true", help="build and kernel checks only")
@@ -1117,8 +1405,13 @@ def main() -> int:
     for src in kernels.SOURCES:
         ptx.update(ptxas_summary(kernels.ptxas_report(src)))
     dyn = {f"{src} C={C}": kernels.bwd_batch(src, C, P)
-           for src, C in (("blend.cu", 10), ("blend.cu", 36), ("stream.cu", 8),
-                          ("stream.cu", 34))}
+           for src, C in (("blend.cu", 10), ("blend.cu", 36), ("blend.cu", 84),
+                          ("blend.cu", 7 + MAX_F), ("stream.cu", 8), ("stream.cu", 34),
+                          ("stream.cu", 82), ("stream.cu", 5 + MAX_F))}
+    dyn.update({f"K1 C={C}": kernels._load("blend.cu").blend_fwd_smem(C, P)
+                for C in (10, 36, 84, 7 + MAX_F)})
+    dyn.update({f"K3 C={C}": kernels._load("stream.cu").stream_fwd_smem(C)
+                for C in (8, 34, 82, 5 + MAX_F)})
     print(f"[build] ptxas: {json.dumps(ptx, sort_keys=True)}; K2/K4 (batch, dynamic smem "
           f"bytes) at P={P}: {json.dumps(dyn)}", flush=True)
     reported = all(any(k.startswith(name) for k in ptx)
@@ -1133,9 +1426,9 @@ def main() -> int:
     # every feature bucket and padding case of the backwards' reduce-scatter
     # on small inputs, then the main path's shapes with timings
     dev = torch.device("cuda")
-    for F in (1, 3, 29, 32):
+    for F in SMALL_F:
         ok &= check_kernels(f"small T=48 K=256 F={F}", *random_table(10 + F, 48, 256, F, 8, dev),
-                            8, 0, seed=10 + F)[1]
+                            8, 0, seed=10 + F, flips_allowed=2)[1]
         ok &= check_stream_kernels(cfg_path, F, 0, W=160, H=96, f=80.0)[1]
     # tiles whose rows start off a 16-byte boundary and a last batch cut short
     # (K1 then copies in 4-byte pieces)
@@ -1152,6 +1445,15 @@ def main() -> int:
         r, good = check_stream_kernels(cfg_path, n_feat, 20)
         rows += r
         ok &= good
+    # the wide bucket at ScanNet tree-large's F = 77: a seeded ladder class,
+    # and frame 0 of the room at 640x480 binned with that config
+    r, good = check_kernels(f"mapping T=128 K=4096 F={SCANNET_F}",
+                            *random_table(1, 128, 4096, SCANNET_F, 128, dev), 128, 20, seed=1)
+    r2, good2 = check_stream_kernels(SCANNET_LARGE, SCANNET_F, 20, **SCANNET_FRAME)
+    for row in r + r2:
+        row["path"] = "scannet"
+    rows += r + r2
+    ok &= good and good2
     print(f"[kernels] checks on seeded inputs done at {time.time() - t0:.1f} s", flush=True)
 
     def check_recorded(recorded):
@@ -1178,7 +1480,7 @@ def main() -> int:
     if not ok:   # after every kernel's line is out
         fail("kernel check at the main path's shapes")
     launches = {k: None for k in kernels.launch_counts}
-    eval_launches = launches
+    eval_launches = scannet_launches = launches
     if not args.kernels:
         final = {}
         for backend in ("pallas", "stream"):
@@ -1230,11 +1532,17 @@ def main() -> int:
         if not eval_agreement(final["stream"]):
             fail("final eval on the GPU disagrees with the CPU")
         print(f"[eval] done at {time.time() - t0:.1f} s", flush=True)
+        good, r, scannet_launches = scannet_phase()
+        rows += r
+        if not good:
+            fail("scannet phase (loader, the tree-large and tree configs through the CLI, K1 "
+                 "and K3/K4 at F = 77 on the run's own inputs)")
+        print(f"[scannet] done at {time.time() - t0:.1f} s", flush=True)
     if args.tracking_table and not os.path.isfile(args.tracking_table):
         torch.save(recorded, args.tracking_table)
+    by_path = {"cli": eval_launches, "scannet": scannet_launches}
     for row in rows:
-        row["launches"] = (eval_launches if row.pop("path", None) == "cli"
-                           else launches)[row.pop("kernel")]
+        row["launches"] = by_path.get(row.pop("path", None), launches)[row.pop("kernel")]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -71,6 +71,13 @@
 // sized by the feature bucket (F <= 3, F <= 29, F <= 32); wide rows (F > 3)
 // are staged at a float4 stride and their features read as float4; 3
 // blocks of 256 an SM (80 registers, no spill).
+//
+// The wide bucket (33 <= F <= 128, fwd.cuh MAX_FEATURES) runs the same code
+// with 128-float register arrays at one block an SM (up to 255 registers):
+// K1's accumulator, K2's cotangents.  Loops over features stop at F, and
+// K2's reduce-scatter skips the chunks past 7 + F (reduce.cuh).  With one
+// block an SM, K1 takes batches of 64 slots under a budget of 112 KB
+// (66 KB at F = 77, 104 KB at F = 128); K2's batch stays under 46 KB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,8 +86,11 @@
 #include "reduce.cuh"
 
 #define K1_SMEM_BUDGET (64 * 1024)  // dynamic shared memory a K1 block may take
+#define K1_WIDE_SMEM_BUDGET (112 * 1024)  // the same in the wide bucket (one block an SM)
 #define BWD_THREADS 256  // most pixels a tile K2 takes
-#define K2_MIN_BLOCKS 3  // K2 blocks an SM must hold: 80 registers, no spill
+// K2 blocks an SM must hold: 3 (80 registers, no spill) up to F <= 32, 1 in
+// the wide bucket
+__host__ __device__ constexpr int k2_min_blocks(int maxf) { return maxf <= 32 ? 3 : 1; }
 
 // K1 staging.  Warp w owns slots w spw .. (w + 1) spw of a batch; nv of them
 // lie inside the table.  stage_copy starts the copy of their rows into the
@@ -190,7 +200,7 @@ blend_fwd_kernel(const float* __restrict__ table, const uint8_t* __restrict__ ok
 }
 
 template <int MAXF>
-__global__ void __launch_bounds__(BWD_THREADS, K2_MIN_BLOCKS) blend_bwd_kernel(
+__global__ void __launch_bounds__(BWD_THREADS, k2_min_blocks(MAXF)) blend_bwd_kernel(
     const float* __restrict__ table, const uint8_t* __restrict__ ok,
     const float* __restrict__ ft, const int* __restrict__ last,
     const int* __restrict__ mslot, const float* __restrict__ gacc, const float* __restrict__ gft,
@@ -324,7 +334,7 @@ __global__ void __launch_bounds__(BWD_THREADS, K2_MIN_BLOCKS) blend_bwd_kernel(
             [&](int c) { return c < 7 ? gs[c] : (c - 7 < MAXF ? ga[c - 7] * w : 0.f); }, red, C,
             lane);
       else
-        hsl::warp_zero_store(red, C, lane);
+        hsl::warp_zero_store<V>(red, C, lane);
     }
     __syncthreads();  // every warp's sums are in s_red
     for (int i = p; i < n * C; i += P) {
@@ -335,17 +345,26 @@ __global__ void __launch_bounds__(BWD_THREADS, K2_MIN_BLOCKS) blend_bwd_kernel(
   }
 }
 
+// The most slots a warp (a multiple of 4: its rows stay 16-byte aligned)
+// that the shared-memory budget of F = C - 7 features holds, and the
+// block's shared memory then; -1 where even 4 do not fit.
+static int fwd_batch(int C, int P, int* spw_out) {
+  const int budget = C - 7 > 32 ? K1_WIDE_SMEM_BUDGET : K1_SMEM_BUDGET;
+  int spw = 32;
+  while (spw > 4 && fwd_smem(C, spw * (P / 32)) > budget) spw /= 2;
+  *spw_out = spw;
+  const int smem = fwd_smem(C, spw * (P / 32));
+  return smem > budget ? -1 : smem;
+}
+
 template <int MAXF>
 static cudaError_t launch_fwd(const float* table, const uint8_t* ok, int T, int K, int C,
                               int grid_x, int th, int tw, float* acc, float* ft, float* med,
                               int* last, int* mslot, cudaStream_t stream) {
   const int P = th * tw;
-  // the most slots a warp (a multiple of 4: its rows stay 16-byte aligned)
-  // the shared-memory budget holds
-  int spw = 32;
-  while (spw > 4 && fwd_smem(C, spw * (P / 32)) > K1_SMEM_BUDGET) spw /= 2;
-  const int smem = fwd_smem(C, spw * (P / 32));
-  if (smem > K1_SMEM_BUDGET) return cudaErrorInvalidValue;
+  int spw = 0;
+  const int smem = fwd_batch(C, P, &spw);
+  if (smem < 0) return cudaErrorInvalidValue;
   static int granted[hsl::MAX_DEVICES] = {};
   const cudaError_t e = hsl::grant_smem(blend_fwd_kernel<MAXF>, smem, granted);
   if (e != cudaSuccess) return e;
@@ -374,9 +393,16 @@ static cudaError_t launch_bwd(const float* table, const uint8_t* ok, const float
 
 extern "C" {
 
-// Largest feature count the kernels take (F = C - 7): 3 (colour) and 29
-// (colour and 26 semantic channels) are what the configs carry.
-int blend_max_features() { return 32; }
+// Largest feature count the kernels take (F = C - 7): the configs carry 3
+// (colour), 19, 29 and 77 (colour and 16, 26 or 74 semantic channels).
+int blend_max_features() { return hsl::MAX_FEATURES; }
+
+// Shared memory (bytes) of one K1 block for C columns and P pixels, -1
+// where no batch fits its budget.
+int blend_fwd_smem(int C, int P) {
+  int spw = 0;
+  return fwd_batch(C, P, &spw);
+}
 
 // Shared memory (bytes) of one K2 block for C columns, P pixels, batch sb.
 int blend_bwd_smem(int C, int P, int sb) { return bwd_smem(C, P, sb); }
@@ -387,13 +413,16 @@ int blend_fwd(const float* table, const uint8_t* ok, int T, int K, int C, int gr
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (th * tw > hsl::FWD_THREADS || !hsl::block_layout(tw, th))
     return (int)cudaErrorInvalidValue;
-  // feature buckets: the configs carry F = 3 and F = 29
+  // feature buckets (fwd.cuh)
   if (F <= 3)
     return launch_fwd<3>(table, ok, T, K, C, grid_x, th, tw, acc, ft, med, last, mslot, s);
   if (F <= 29)
     return launch_fwd<29>(table, ok, T, K, C, grid_x, th, tw, acc, ft, med, last, mslot, s);
   if (F <= 32)
     return launch_fwd<32>(table, ok, T, K, C, grid_x, th, tw, acc, ft, med, last, mslot, s);
+  if (F <= hsl::MAX_FEATURES)
+    return launch_fwd<hsl::MAX_FEATURES>(table, ok, T, K, C, grid_x, th, tw, acc, ft, med, last,
+                                         mslot, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -404,7 +433,7 @@ int blend_bwd(const float* table, const uint8_t* ok, const float* ft, const int*
   const int F = C - 7;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (th * tw > BWD_THREADS) return (int)cudaErrorInvalidValue;
-  // feature buckets: the configs carry F = 3 and F = 29
+  // feature buckets (fwd.cuh)
   if (F <= 3)
     return launch_bwd<3>(table, ok, ft, last, mslot, gacc, gft, gmed, T, K, C, grid_x, th, tw,
                          sb, dtab, s);
@@ -414,6 +443,9 @@ int blend_bwd(const float* table, const uint8_t* ok, const float* ft, const int*
   if (F <= 32)
     return launch_bwd<32>(table, ok, ft, last, mslot, gacc, gft, gmed, T, K, C, grid_x, th,
                           tw, sb, dtab, s);
+  if (F <= hsl::MAX_FEATURES)
+    return launch_bwd<hsl::MAX_FEATURES>(table, ok, ft, last, mslot, gacc, gft, gmed, T, K, C,
+                                         grid_x, th, tw, sb, dtab, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -25,11 +25,20 @@ constexpr float ALPHA_MAX = 0.99f;  // alpha is clamped here; ALPHA_MIN is in cu
 constexpr float T_END = 1e-4f;
 constexpr float MEDIAN_NONE = 15.0f;
 
+// Feature buckets: every kernel is built for F <= 3, F <= 29, F <= 32 and
+// F <= MAX_FEATURES, the wide bucket (33 to 128 features: the 77 of the
+// ScanNet tree-large config, any F the JAX kernels take up to that).  Its
+// accumulator, or cotangent, is a register array of 128 floats, which
+// leaves room under the 255-register cap at one block of 256 an SM; the
+// shared memory of K3's row pipeline at F = 128 (207 KB of the 227 KB a
+// block may have) is the other limit.  The wrappers raise above it.
+constexpr int MAX_FEATURES = 128;
+
 // Blocks of 256 an SM must hold, which sets the register cap: 4 (64
 // registers) at F <= 3, 3 (80) at F <= 29, 2 (up to 128) at F <= 32, which
-// spills 16-28 bytes at 80.
+// spills 16-28 bytes at 80; 1 (up to 255) in the wide bucket.
 __host__ __device__ constexpr int fwd_min_blocks(int maxf) {
-  return maxf <= 3 ? 4 : maxf <= 29 ? 3 : 2;
+  return maxf <= 3 ? 4 : maxf <= 29 ? 3 : maxf <= 32 ? 2 : 1;
 }
 
 // float4 per entry of the feature array.

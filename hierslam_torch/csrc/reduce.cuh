@@ -24,7 +24,11 @@
 //   V = 10 (F = 3, tracking-width tables): 8 + 2, (7 + 2) + (1 + 4) = 14
 //          shuffles against 50;
 //   V = 36 (F = 29): 16 + 16 + 4, 16 + 16 + (3 + 3) = 38 against 180;
-//   V = 39 (the F <= 32 bucket): 16 + 16 + 8 (7 used), 16 + 16 + 9 = 41.
+//   V = 39 (the F <= 32 bucket): 16 + 16 + 8 (7 used), 16 + 16 + 9 = 41;
+//   V = 135 (the wide bucket, F <= 128): eight chunks of 16 and one of 8,
+//          of which a run at F features reduces only the chunks that start
+//          below 7 + F: at F = 77 six of 16 (the last with 4 values used),
+//          6 x (15 + 1) = 96 shuffles against 420.
 //
 // Array indices stay compile-time constants (every loop is unrolled over a
 // template size and the half is chosen with `?:`, never by indexing with the
@@ -108,11 +112,17 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[N], int lane) {
 // then be 0 and are not stored).  value(c) gives value c of this lane; it is
 // called once for each c < V.  Chunk by chunk (first_chunk), lane l of a
 // chunk of N values starting at value B stores red[B + l] for l < N.
+// Above 64 values (the wide bucket) a chunk that starts at or past nr, all
+// of whose values are then 0 and none stored, is skipped (nr is the same in
+// every lane).
 template <int V, int B = 0, typename Value>
 __device__ __forceinline__ void warp_sum_store(Value value, float* red, int nr, int lane) {
-  static_assert(V >= 1 && V <= 64 && B < V, "V: 1 to 64 values");
+  static_assert(V >= 1 && B < V, "V: at least 1 value");
   constexpr int N = first_chunk(V - B);
   static_assert(N <= 32 && (N & (N - 1)) == 0, "MAX_CHUNK: a power of two <= 32");
+  if constexpr (V > 64) {
+    if (B >= nr) return;
+  }
   float a[N];
 #pragma unroll
   for (int c = 0; c < N; ++c) a[c] = (B + c < V) ? value(B + c) : 0.f;
@@ -121,10 +131,15 @@ __device__ __forceinline__ void warp_sum_store(Value value, float* red, int nr, 
   if constexpr (B + N < V) warp_sum_store<V, B + N>(value, red, nr, lane);
 }
 
-// What warp_sum_store stores for a warp whose lanes are all idle (nr <= 64).
+// What warp_sum_store<V> stores for a warp whose lanes are all idle.
+template <int V>
 __device__ __forceinline__ void warp_zero_store(float* red, int nr, int lane) {
-  if (lane < nr) red[lane] = 0.f;
-  if (lane + 32 < nr) red[lane + 32] = 0.f;
+  if constexpr (V <= 64) {
+    if (lane < nr) red[lane] = 0.f;
+    if (lane + 32 < nr) red[lane + 32] = 0.f;
+  } else {
+    for (int i = lane; i < nr; i += 32) red[i] = 0.f;
+  }
 }
 
 }  // namespace hsl

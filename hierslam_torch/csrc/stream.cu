@@ -97,6 +97,14 @@
 // the feature bucket (F <= 3, F <= 29, F <= 32), and the wide buckets keep
 // the median position and cotangent in shared memory, which lets F <= 29
 // fit 3 blocks of 256 (80 registers) an SM with no spill (k4_min_blocks).
+//
+// The wide bucket (33 <= F <= 128, fwd.cuh MAX_FEATURES) runs the same code
+// with 128-float register arrays at one block an SM (up to 255 registers):
+// K3's accumulator, K4's cotangents.  Loops over features stop at F, and
+// K4's reduce-scatter skips the chunks past 7 + F (reduce.cuh).  Shared
+// memory grows with C: K3 129 KB at F = 77 (207 KB at F = 128); K4 100 KB
+// at F = 77, whose reduction buffer of up to 15 pairs fits in the dead raw
+// row (ops/kernels.py bwd_batch).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,8 +120,10 @@
 // K4 blocks an SM must hold, which sets the register cap (65,536 / (256 x
 // blocks), rounded down to 8): 3 (80 registers) for the buckets that fit
 // that with no spill, F <= 3 and F <= 29; 2 (up to 128) for F <= 32, which
-// spills 8 bytes at 80.
-__host__ __device__ constexpr int k4_min_blocks(int maxf) { return maxf <= 29 ? 3 : 2; }
+// spills 8 bytes at 80; 1 (up to 255) for the wide bucket.
+__host__ __device__ constexpr int k4_min_blocks(int maxf) {
+  return maxf <= 29 ? 3 : maxf <= 32 ? 2 : 1;
+}
 
 // Projection terms the chain step reads, [NCH][RW] in shared memory.
 enum {
@@ -477,7 +487,7 @@ stream_bwd_kernel(const float* __restrict__ stream, const float* __restrict__ sc
               [&](int c) { return c < ND ? g[c] : (c - ND < MAXF ? ga[c - ND] * w : 0.f); },
               red, NR, lane);
         } else {
-          hsl::warp_zero_store(red, NR, lane);
+          hsl::warp_zero_store<V>(red, NR, lane);
         }
       }
       if (__syncthreads_or(busy)) {
@@ -592,9 +602,12 @@ static cudaError_t launch_bwd(const float* stream, const float* sc, const int* r
 
 extern "C" {
 
-// Largest feature count the kernels take (F = C - 5): 3 (colour) and 29
-// (colour and 26 semantic channels) are what the configs carry.
-int stream_max_features() { return 32; }
+// Largest feature count the kernels take (F = C - 5): the configs carry 3
+// (colour), 19, 29 and 77 (colour and 16, 26 or 74 semantic channels).
+int stream_max_features() { return hsl::MAX_FEATURES; }
+
+// Shared memory (bytes) of one K3 block for C columns.
+int stream_fwd_smem(int C) { return fwd_smem(C); }
 
 // Shared memory (bytes) of one K4 block for C columns, P pixels, batch sb.
 int stream_bwd_smem(int C, int P, int sb) { return bwd_smem(C, P, sb); }
@@ -606,7 +619,7 @@ int stream_fwd(const float* stream, const float* sc, const int* row_off, int T, 
   cudaStream_t s = reinterpret_cast<cudaStream_t>(cu_stream);
   if (th * tw > hsl::FWD_THREADS || th * tw < RW || !hsl::block_layout(tw, th))
     return (int)cudaErrorInvalidValue;
-  // feature buckets: the configs carry F = 3 and F = 29
+  // feature buckets (fwd.cuh)
   if (F >= 0 && F <= 3)
     return launch_fwd<3>(stream, sc, row_off, T, R, C, grid_x, th, tw, img_w, img_h, acc, ft,
                          med, last, mpos, s);
@@ -616,6 +629,9 @@ int stream_fwd(const float* stream, const float* sc, const int* row_off, int T, 
   if (F >= 0 && F <= 32)
     return launch_fwd<32>(stream, sc, row_off, T, R, C, grid_x, th, tw, img_w, img_h, acc, ft,
                           med, last, mpos, s);
+  if (F >= 0 && F <= hsl::MAX_FEATURES)
+    return launch_fwd<hsl::MAX_FEATURES>(stream, sc, row_off, T, R, C, grid_x, th, tw, img_w,
+                                         img_h, acc, ft, med, last, mpos, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -626,7 +642,7 @@ int stream_bwd(const float* stream, const float* sc, const int* row_off, const f
   const int F = C - 5;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(cu_stream);
   if (th * tw > BWD_THREADS) return (int)cudaErrorInvalidValue;
-  // feature buckets: the configs carry F = 3 and F = 29
+  // feature buckets (fwd.cuh)
   if (F >= 0 && F <= 3)
     return launch_bwd<3>(stream, sc, row_off, ft, last, mpos, gacc, gft, gmed, T, R, C, grid_x,
                          th, tw, img_w, img_h, sb, dtab, s);
@@ -636,6 +652,9 @@ int stream_bwd(const float* stream, const float* sc, const int* row_off, const f
   if (F >= 0 && F <= 32)
     return launch_bwd<32>(stream, sc, row_off, ft, last, mpos, gacc, gft, gmed, T, R, C, grid_x,
                           th, tw, img_w, img_h, sb, dtab, s);
+  if (F >= 0 && F <= hsl::MAX_FEATURES)
+    return launch_bwd<hsl::MAX_FEATURES>(stream, sc, row_off, ft, last, mpos, gacc, gft, gmed,
+                                         T, R, C, grid_x, th, tw, img_w, img_h, sb, dtab, s);
   return (int)cudaErrorInvalidValue;
 }
 

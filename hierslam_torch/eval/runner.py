@@ -8,14 +8,17 @@ Protocol:
   mask, reported in cm;
 * semantic mIoU / boundary-mIoU per-class accumulation, with leaf decoding
   through the 1x1-conv decoder or by per-level argmax + tuple->leaf lookup;
+  where the dataset has ``semantic_id`` (ScanNet tree_large), prediction
+  and ground truth are mapped from dense leaf indices to those sparse raw
+  ids and the classes are the ids, in their order, named by
+  ``semantic_class``;
 * trajectory ATE from the estimated trajectory vs GT w2c, in cm; 100.0 on
   failure;
 * summary row: [ATE RMSE] [PSNR] [MS-SSIM] [LPIPS] [Depth L1] [Depth RMSE]
   [miou] [mbiou].
 
 Not ported (ROADMAP.md, queue 1 path 5): ``save_frames`` (per-frame image
-dumps and the semantic figures), ``model.eval_gt_transfer``, the ScanNet
-sparse-id protocol and LPIPS.
+dumps and the semantic figures), ``model.eval_gt_transfer`` and LPIPS.
 """
 from __future__ import annotations
 
@@ -121,6 +124,7 @@ def run_final_eval(
     semantic = hasattr(dataset, "num_semantic")
     tree_mode = semantic and isinstance(dataset.num_semantic, list)
     class_names = getattr(dataset, "semantic_class", None)
+    sparse_ids = getattr(dataset, "semantic_id", None)
 
     _, depth0, K4, _ = dataset[0][:4]
     H, W = depth0.shape
@@ -176,11 +180,19 @@ def run_final_eval(
             n_cls = dataset.num_semantic_class if hasattr(dataset, "num_semantic_class") else (
                 dataset.num_semantic if not tree_mode else dataset.num_semantic[-1])
             pred = torch.as_tensor(pred, device=dev)
+            gt_leaf = torch.as_tensor(gt_leaf, device=dev)
+            if sparse_ids is not None:
+                # dense leaf index -> sparse raw id, for prediction and GT
+                sid = torch.as_tensor(sparse_ids, device=dev)
+                pred = sid[pred.long().clamp(0, len(sid) - 1)]
+                gt_leaf = sid[gt_leaf.long().clamp(0, len(sid) - 1)]
+                class_ids = list(sparse_ids)
+            else:
+                class_ids = list(range(int(n_cls)))
             if verbose_iou:
                 print(f"current frame is: {t}")
             f_miou, f_mbiou, f_iou, f_biou = iou_acc.add_frame(
-                pred, torch.as_tensor(gt_leaf, device=dev), list(range(int(n_cls))),
-                class_names, verbose=verbose_iou)
+                pred, gt_leaf, class_ids, class_names, verbose=verbose_iou)
             if verbose_iou:
                 print(f"mean_iou: {f_miou:.4f}, mean_biou: {f_mbiou:.4f}")
             with open(iou_txt, "a") as f:

@@ -11,7 +11,11 @@ import time.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on PyTorch's current stream, raises on a launch error,
-and adds one to its entry of :data:`launch_counts`.
+and adds one to its entry of :data:`launch_counts`.  The kernels take 0 to
+128 features (``csrc/fwd.cuh`` MAX_FEATURES); a wrapper raises above that,
+and a launch whose block would need more shared memory than its budget
+or the card's grant returns an error before it starts, on which the
+wrapper raises.
 """
 from __future__ import annotations
 
@@ -34,8 +38,10 @@ SOURCES = {"blend.cu": (), "stream.cu": ("-fmad=false",)}
 SMEM_BUDGET = 46 * 1024   # K2's dynamic shared memory per block, under the 48 KB default
 # K4's budget is above 48 KB (the launch asks for it): its shared copies of
 # the projection terms and the float4 features take 52 KB at F = 29 before
-# any batch, and 3 blocks of 64 KB still fit an SM's 228 KB.  K1 and K3 size
-# their own buffers under the same 64 KB (csrc/blend.cu, csrc/stream.cu).
+# any batch, and 3 blocks of 64 KB still fit an SM's 228 KB.  Past that (the
+# wide bucket, which runs one block an SM) the batch takes no more than the
+# block needs at a batch of 1: its buffer then lies in the dead raw row.
+# K1 and K3 size their own buffers (csrc/blend.cu, csrc/stream.cu).
 K4_SMEM_BUDGET = 64 * 1024
 RW = 128                  # pairs per stream row
 TILE_THREADS = 256        # most pixels a tile the kernels take (their launch bounds)
@@ -129,9 +135,10 @@ def _load(source: str) -> ctypes.CDLL:
             lib.blend_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                       _I, _P, _P]
             lib.blend_max_features.argtypes = []
+            lib.blend_fwd_smem.argtypes = [_I, _I]
             lib.blend_bwd_smem.argtypes = [_I, _I, _I]
             for fn in (lib.blend_fwd, lib.blend_bwd, lib.blend_max_features,
-                       lib.blend_bwd_smem):
+                       lib.blend_fwd_smem, lib.blend_bwd_smem):
                 fn.restype = _I
         else:
             lib.stream_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
@@ -139,9 +146,10 @@ def _load(source: str) -> ctypes.CDLL:
             lib.stream_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _I, _F, _F, _I, _P, _P]
             lib.stream_max_features.argtypes = []
+            lib.stream_fwd_smem.argtypes = [_I]
             lib.stream_bwd_smem.argtypes = [_I, _I, _I]
             for fn in (lib.stream_fwd, lib.stream_bwd, lib.stream_max_features,
-                       lib.stream_bwd_smem):
+                       lib.stream_fwd_smem, lib.stream_bwd_smem):
                 fn.restype = _I
         _libs[source] = lib
     return _libs[source]
@@ -166,9 +174,10 @@ def _tile_args(table: torch.Tensor, tile_shape):
         raise ValueError(f"tile {th} x {tw}: need a multiple of 4 x 8 pixels (the forwards' "
                          f"warps are 8 x 4 pixel blocks), at most {TILE_THREADS} pixels")
     T, K, C = table.shape
-    if C < 7 or C - 7 > _load("blend.cu").blend_max_features():
-        raise ValueError(f"table width {C}: need 7 + F columns, F <= "
-                         f"{_load('blend.cu').blend_max_features()}")
+    max_f = _load("blend.cu").blend_max_features()
+    if C < 7 or C - 7 > max_f:
+        raise ValueError(f"table width {C}: need 7 + F columns, F <= {max_f} (the kernels' "
+                         "widest feature bucket)")
     return T, K, C, th, tw, P
 
 
@@ -236,12 +245,16 @@ def blend_bwd(table, ok, ft, last, mslot, gacc, gft, gmed, grid_x: int, tile_sha
 def bwd_batch(source: str, C: int, P: int):
     """The batch of K2's slots (``blend.cu``) or K4's pairs (``stream.cu``)
     summed between two passes over the warps, at most 32 and as many as
-    :data:`SMEM_BUDGET` (K2) or :data:`K4_SMEM_BUDGET` allow at table
-    width C and P pixels a tile, and the block's dynamic shared memory in
-    bytes."""
+    :data:`SMEM_BUDGET` (K2) or K4's budget allow at table width C and P
+    pixels a tile, and the block's dynamic shared memory in bytes.  K4's
+    budget is the larger of :data:`K4_SMEM_BUDGET` and what the block
+    needs at a batch of 1."""
     lib = _load(source)
-    budget, smem_of = ((SMEM_BUDGET, lib.blend_bwd_smem) if source == "blend.cu" else
-                       (K4_SMEM_BUDGET, lib.stream_bwd_smem))
+    if source == "blend.cu":
+        budget, smem_of = SMEM_BUDGET, lib.blend_bwd_smem
+    else:
+        smem_of = lib.stream_bwd_smem
+        budget = max(K4_SMEM_BUDGET, smem_of(C, P, 1))
     sb = 32
     while sb > 1 and smem_of(C, P, sb) > budget:
         sb -= 1
@@ -262,7 +275,8 @@ def _stream_args(stream: torch.Tensor, scalars: torch.Tensor, row_off: torch.Ten
                          f"warps are 8 x 4 pixel blocks), {RW} to {TILE_THREADS} pixels")
     max_f = _load("stream.cu").stream_max_features()
     if not 0 <= n_feat <= max_f:
-        raise ValueError(f"{n_feat} features: the stream kernels take at most {max_f}")
+        raise ValueError(f"{n_feat} features: the stream kernels take at most {max_f} (their "
+                         "widest feature bucket)")
     C = 5 + n_feat
     R = stream.shape[0]
     T = row_off.shape[0] - 1

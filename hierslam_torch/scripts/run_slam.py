@@ -2,12 +2,15 @@
 
     python3 -m hierslam_torch.scripts.run_slam configs/replica/hierslam_semantic_run.py
     python3 -m hierslam_torch.scripts.run_slam CONFIG --no-eval --device cpu
+    SCANNET_DIR=DIR python3 -m hierslam_torch.scripts.run_slam configs/scannet/CONFIG.py
 
 The JAX package's CLI contract (``scripts/run_slam.py``): the run's
 results directory is ``workdir/run_name``, a copy of the config goes there
 as ``config.py`` (unless the run resumes from a checkpoint), the eval
 prints its header and row, and the total time is printed last.
-``--device`` (default ``cuda``) picks where the run goes.
+``--device`` (default ``cuda``) picks where the run goes.  The ScanNet
+configs take their data directory from ``SCANNET_DIR`` and the scene from
+``SCENE_NUM``.
 """
 import argparse
 import os

@@ -270,7 +270,7 @@ def test_replica_loader_resized_and_strided(tmp_path):
 
 
 def test_unported_loaders_say_so(tmp_path):
-    for name in ("scannet", "tum", "icl"):
+    for name in ("scannetpp", "tum", "icl"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             t_get_dataset({"dataset_name": name}, str(tmp_path), "x")
     cfg = tbase.load_dataset_config(os.path.join(ROOT, "configs", "data", "tum.yaml"))
