@@ -457,10 +457,16 @@ class SLAMRunner:
             self.logger.log_iters(t, "mapping", losses)
             n_mb = int(np.max(losses.get("n_map_bin_dropped", 0.0)))
             if n_mb > self.overflow_warn_threshold:
-                knob = ("raster.stream_rows / stream_cap" if self.rc.backend == "stream"
-                        else "raster.bucket_spec")
+                vb = self.rc.visible_budget
+                if self.rc.backend == "stream":
+                    causes = "row budget / per-tile cap / emission budgets"
+                    knob = "raster.stream_rows / stream_cap"
+                else:
+                    causes = ("capacity-class ladder / emission budgets"
+                              + (f" / visible_budget={vb}" if vb else ""))
+                    knob = "raster.bucket_spec"
                 warnings.warn(f"frame {t}: mapping binning dropped {n_mb} (gaussian, tile) "
-                              f"pairs — consider widening {knob}")
+                              f"pairs ({causes}) — consider widening {knob}")
                 self.logger.log(t, n_map_bin_dropped=n_mb)
             n_gd = int(np.max(losses.get("n_grad_dropped", 0.0)))
             if n_gd > 0:

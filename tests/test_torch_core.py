@@ -1,9 +1,17 @@
 """Parity of the port's core modules with the JAX package: camera,
 transforms, the capacity map and the config loader.  Same numpy inputs
 through both; float32 on both sides, so tolerances are a few ulps of the
-values compared (1e-6 absolute on unit-scale quantities)."""
+values compared (1e-6 absolute on unit-scale quantities).
+
+``test_capacity_remedies_match_jax`` runs both SLAM runners through the
+remedy loop of a full map (bucket growth, compaction of pruning holes,
+escalated prunes): its counts and the order of its events are equal, the
+mapping losses within 1e-2 (float32 sums in another order, compounded
+over the remedies' redone densifies)."""
 import dataclasses
 import glob
+import importlib.util
+import json
 import os
 
 import jax.numpy as jnp
@@ -151,3 +159,62 @@ def test_config_loads_like_jax(path):
     rj = dataclasses.asdict(jcfg.raster_config(cj))
     rt = dataclasses.asdict(tcfg.raster_config(ct))
     assert rt == rj
+
+
+def test_capacity_remedies_match_jax(tmp_path):
+    """Three frames of the procedural room at 64x48 in a map of 3,584 slots
+    (the first frame inserts 3,072), GT poses, a densify every frame and
+    ``SLAMRunner``'s bucket knobs cut (step 1,024, no headroom, no
+    compaction by hole count alone).  The mapping prunes the gaussians
+    beyond 3.2 / 3.21 of frame 0's farthest depth (``scene_radius_depth_ratio``
+    3.21), the camera's arc (6 frames to the loop) shows new surface, and so
+    each densify overflows: the bucket grows to the capacity, the pruning
+    holes are compacted, and the least-opaque gaussians are pruned (three
+    times at most) while the densify, redone with the same draws, does not
+    fit; what still does not fit is dropped with a warning
+    (``on_capacity_saturated="warn"``) and counted.  The counts of both
+    runners and the sequence of their compactions and prunes are equal."""
+    from test_e2e import small_config
+
+    from hierslam_torch.slam.pipeline import SLAMRunner as TorchRunner
+    from hierslam_tpu.slam.pipeline import SLAMRunner as JaxRunner
+
+    spec = importlib.util.spec_from_file_location(
+        "procedural_room", os.path.join(ROOT, "tools", "procedural_room.py"))
+    room = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(room)
+    room.generate(str(tmp_path / "data"), n_frames=6, W=64, H=48)
+    cfg = small_config(str(tmp_path / "data"), "proc_room", semantic=False,
+                       workdir=str(tmp_path / "jax"))
+    cfg["data"]["num_frames"] = 3
+    cfg["data"]["camera_params"].update(fx=32.0, fy=32.0, cx=31.5, cy=23.5)
+    cfg["tracking"].update(use_gt_poses=True, num_iters=3)
+    cfg["mapping"].update(num_iters=3, on_capacity_saturated="warn")
+    cfg["raster"]["max_per_tile"] = 1024
+    cfg.update(map_capacity=3584, map_every=1, scene_radius_depth_ratio=3.21,
+               bucket_step=1024, bucket_headroom=0, hole_compact_threshold=10**6)
+    runners = {"torch": TorchRunner(dict(cfg, workdir=str(tmp_path / "torch"),
+                                         raster=dict(cfg["raster"], backend="pallas")),
+                                    device="cpu"),
+               "jax": JaxRunner(dict(cfg, raster=dict(cfg["raster"], backend="xla")))}
+    stats, events, losses = {}, {}, {}
+    for side, r in runners.items():
+        assert r.bucket == 3072 < r.capacity == 3584
+        with pytest.warns(UserWarning, match="escalated prune"):
+            _, stats[side] = r.run()
+        with open(os.path.join(r.output_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        events[side] = [(rec["step"], rec.get("compaction_reason"), rec.get("slots_reclaimed"),
+                         rec.get("emergency_pruned"), rec.get("n_active")) for rec in recs
+                        if "compaction_reason" in rec or "emergency_pruned" in rec]
+        losses[side] = np.array([rec["mapping_loss"] for rec in recs
+                                 if rec.get("phase") == "mapping"])
+    keys = ("densify_added", "densify_overflow", "compactions", "slots_reclaimed",
+            "emergency_pruned", "n_active")
+    assert {k: stats["torch"][k] for k in keys} == {k: stats["jax"][k] for k in keys}
+    assert events["torch"] == events["jax"]
+    reasons = [e[1] for e in events["torch"] if e[1]]
+    assert any(r.startswith("densify overflow") for r in reasons)
+    assert any(r.startswith("escalated prune") for r in reasons)
+    assert stats["torch"]["emergency_pruned"] > 0
+    np.testing.assert_allclose(losses["torch"], losses["jax"], rtol=1e-2)

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``hierslam_torch`` and not
-``chip_smoke.py`` imports ``jax`` or ``hierslam_tpu``, and none imports
+"""The port stands alone: no module of ``hierslam_torch``, not
+``chip_smoke.py`` and not ``tools/real_shape_run_torch.py`` imports ``jax``
+or ``hierslam_tpu``, and none imports
 ``cv2``, ``imageio``, ``yaml`` or ``PIL`` (checked on the source, so a lazy
 import inside a function counts too; matplotlib and tqdm are imported only
 inside a gate); and every entry point refuses to run without CUDA unless
@@ -33,7 +34,8 @@ def _imported_roots(path):
     return roots
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [os.path.join(ROOT, "chip_smoke.py")],
+@pytest.mark.parametrize("path", PORT_FILES + [os.path.join(ROOT, "chip_smoke.py"),
+                                  os.path.join(ROOT, "tools", "real_shape_run_torch.py")],
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_import(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
