@@ -5,6 +5,8 @@ own image and YAML readers (``utils/image_io.py``) in place of ``cv2``,
 
 * subclass hooks ``get_filepaths`` / ``load_poses``;
 * start/end/stride subsampling;
+* colour undistorted as ``cv2.undistort`` where the camera has
+  ``distortion`` coefficients (TUM; ``undistort``);
 * colour resized as ``cv2.resize(INTER_LINEAR)``, depth and labels as
   ``cv2.resize(INTER_NEAREST)`` (``resize``), depth then divided by
   ``png_depth_scale``;
@@ -108,6 +110,56 @@ def resize(img: np.ndarray, width: int, height: int, nearest: bool) -> np.ndarra
     return out.astype(img.dtype) if img.dtype.kind == "f" else out
 
 
+def undistort_map(K: np.ndarray, dist, height: int, width: int):
+    """The source position of every pixel of the undistorted image, in
+    1/32 of a pixel: ``cv2.initUndistortRectifyMap`` with the same camera
+    matrix and no rectification, to ``CV_16SC2``.
+
+    ``dist`` holds k1, k2, p1, p2[, k3[, k4, k5, k6]].  -> (iu, iv), int64
+    [height, width]: the rounded ``u * 32`` and ``v * 32``."""
+    fx, fy, cx, cy = float(K[0, 0]), float(K[1, 1]), float(K[0, 2]), float(K[1, 2])
+    k1, k2, p1, p2, k3, k4, k5, k6 = list(np.asarray(dist, np.float64)) + [0.0] * (
+        8 - len(dist))
+    v, u = np.meshgrid(np.arange(height, dtype=np.float64), np.arange(width, dtype=np.float64),
+                       indexing="ij")
+    x, y = (u - cx) / fx, (v - cy) / fy
+    x2, y2 = x * x, y * y
+    r2 = x2 + y2
+    xy2 = 2 * x * y
+    kr = (1 + ((k3 * r2 + k2) * r2 + k1) * r2) / (1 + ((k6 * r2 + k5) * r2 + k4) * r2)
+    su = fx * (x * kr + p1 * xy2 + p2 * (r2 + 2 * x2)) + cx
+    sv = fy * (y * kr + p1 * (r2 + 2 * y2) + p2 * xy2) + cy
+    return np.round(su * 32).astype(np.int64), np.round(sv * 32).astype(np.int64)
+
+
+def remap_linear(img: np.ndarray, fmap) -> np.ndarray:
+    """``cv2.remap(img, map1, map2, INTER_LINEAR, BORDER_CONSTANT)`` of a
+    float64 [H, W] or [H, W, C] image on a fixed-point map from
+    ``undistort_map``: the integer part is ``>> 5``, the fraction ``& 31``
+    over 32; the four weights are cv2's float32 products, the sum float64,
+    and taps off the image read 0."""
+    iu, iv = fmap
+    H, W = img.shape[:2]
+    x0, y0 = iu >> 5, iv >> 5
+    a = (iu & 31).astype(np.float32) / 32
+    b = (iv & 31).astype(np.float32) / 32
+    ex = (...,) + (None,) * (img.ndim - 2)
+    src = img.astype(np.float64)
+    out = np.zeros(iu.shape + img.shape[2:], np.float64)
+    for dy, dx, w in ((0, 0, (1 - b) * (1 - a)), (0, 1, (1 - b) * a), (1, 0, b * (1 - a)),
+                      (1, 1, b * a)):
+        yy, xx = y0 + dy, x0 + dx
+        inside = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+        tap = src[np.clip(yy, 0, H - 1), np.clip(xx, 0, W - 1)]
+        out += np.where(inside[ex], tap, 0.0) * w.astype(np.float64)[ex]
+    return out
+
+
+def undistort(img: np.ndarray, K: np.ndarray, dist) -> np.ndarray:
+    """``cv2.undistort(img, K, dist)`` of a float64 image, to the bit."""
+    return remap_linear(img, undistort_map(K, dist, *img.shape[:2]))
+
+
 class RGBDDataset:
     """Base class.  Subclasses set ``self.input_folder`` (and optionally
     ``self.pose_path``) before calling ``super().__init__``."""
@@ -131,11 +183,8 @@ class RGBDDataset:
         self.orig_width = cam["image_width"]
         self.fx, self.fy = cam["fx"], cam["fy"]
         self.cx, self.cy = cam["cx"], cam["cy"]
-        if cam.get("distortion"):
-            raise NotImplementedError(
-                "undistorting colour frames (camera_params.distortion, TUM) is not ported "
-                "yet (ROADMAP.md, queue 1 path 5)")
-        self.distortion = None
+        self.distortion = np.array(cam["distortion"]) if cam.get("distortion") else None
+        self._undistort_map = None       # built at the first frame: K and the size are fixed
         self.crop_edge = cam.get("crop_edge")
 
         self.desired_height = desired_height
@@ -202,6 +251,11 @@ class RGBDDataset:
 
     def load_rgbd(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
         color = np.asarray(read_image(self.color_paths[index]), dtype=float)
+        if self.distortion is not None:
+            if self._undistort_map is None or self._undistort_map[0].shape != color.shape[:2]:
+                K = as_intrinsics_matrix(self.fx, self.fy, self.cx, self.cy)
+                self._undistort_map = undistort_map(K, self.distortion, *color.shape[:2])
+            color = remap_linear(color, self._undistort_map)
         color = self._preprocess_color(color)
         depth = self._preprocess_depth(self._read_depth(self.depth_paths[index]))
         return color.astype(np.float32), depth.astype(np.float32)

@@ -6,7 +6,8 @@
 * per-class IoU and boundary IoU with per-frame accumulation; the boundary
   band is an erosion by a (2d+1)^2 square, a separable max pool of the
   mask's complement on the masks' device;
-* LPIPS is not ported: ``lpips_fn`` returns None without weights.
+* LPIPS-alex from local weights (``lpips_fn``, ``eval/lpips.py``); None
+  without weights.
 """
 from __future__ import annotations
 
@@ -209,11 +210,12 @@ def eval_semantic_single(pred_label, gt_label, class_ids, class_names=None,
     return miou, mbiou, per_iou, per_biou
 
 
-def lpips_fn(weights_path: Optional[str] = None):
-    """LPIPS is not ported: None without weights (the row prints nan)."""
-    if weights_path:
-        raise NotImplementedError("LPIPS is not ported yet (ROADMAP.md, queue 1 path 5)")
-    return None
+def lpips_fn(weights_path: Optional[str] = None, device="cuda"):
+    """LPIPS-alex from local weights (``eval/lpips.py``); None, with the
+    expected path printed, where there are none (the row prints nan)."""
+    from hierslam_torch.eval.lpips import lpips_fn as _lpips
+
+    return _lpips(weights_path, device)
 
 
 def decode_tree_labels(sem_img, num_semantic: List[int]):

@@ -12,13 +12,18 @@ Protocol:
   and ground truth are mapped from dense leaf indices to those sparse raw
   ids and the classes are the ids, in their order, named by
   ``semantic_class``;
+* LPIPS-alex on the masked images where weights are found (``lpips.py``),
+  else NaN;
+* ``model.eval_gt_transfer``: SGS-SLAM's colour-transfer protocol on the
+  leaf labels before scoring (``semantic_viz.gt_transfer_labels``);
+* ``save_frames``: per-frame PNGs of the render, its JET-coloured depth,
+  the GT colour and depth and the leaf labels, and in tree mode the class
+  legend (where matplotlib imports) and the per-level figures of
+  ``semantic_viz.show_semantic``;
 * trajectory ATE from the estimated trajectory vs GT w2c, in cm; 100.0 on
   failure;
 * summary row: [ATE RMSE] [PSNR] [MS-SSIM] [LPIPS] [Depth L1] [Depth RMSE]
   [miou] [mbiou].
-
-Not ported (ROADMAP.md, queue 1 path 5): ``save_frames`` (per-frame image
-dumps and the semantic figures), ``model.eval_gt_transfer`` and LPIPS.
 """
 from __future__ import annotations
 
@@ -34,9 +39,35 @@ from hierslam_torch.core import transforms
 from hierslam_torch.core.camera import setup_camera
 from hierslam_torch.eval import ate as ate_lib
 from hierslam_torch.eval import metrics as M
+from hierslam_torch.eval.semantic_viz import (gt_transfer_labels, plot_semantic_legend,
+                                              show_semantic, visualize_label)
 from hierslam_torch.slam.losses import mlp_apply, render_gaussians
+from hierslam_torch.utils.image_io import write_png
 
 _GAUSS_KEYS = ("means3D", "rgb_colors", "unnorm_rotations", "logit_opacities", "log_scales")
+
+# cv2.applyColorMap's COLORMAP_JET as RGB rows 0..255 (cv2 builds it by
+# interpolating its anchors; no closed formula rounds to the same bytes)
+JET_RGB = np.frombuffer(bytes.fromhex(
+    "00008000008400008800008c00009000009400009800009c0000a00000a40000a80000ac0000b00000b40000b8"
+    "0000bc0000c00000c40000c80000cc0000d00000d40000d80000dc0000e00000e40000e80000ec0000f00000f4"
+    "0000f80000fc0000ff0004ff0008ff000cff0010ff0014ff0018ff001cff0020ff0024ff0028ff002cff0030ff"
+    "0034ff0038ff003cff0040ff0044ff0048ff004cff0050ff0054ff0058ff005cff0060ff0064ff0068ff006cff"
+    "0070ff0074ff0078ff007cff0080ff0084ff0088ff008cff0090ff0094ff0098ff009cff00a0ff00a4ff00a8ff"
+    "00acff00b0ff00b4ff00b8ff00bcff00c0ff00c4ff00c8ff00ccff00d0ff00d4ff00d8ff00dcff00e0ff00e4ff"
+    "00e8ff00ecff00f0ff00f4ff00f8ff00fcff02fffe06fffa0afff60efff212ffee16ffea1affe61effe222ffde"
+    "26ffda2affd62effd232ffce36ffca3affc63effc242ffbe46ffba4affb64effb252ffae56ffaa5affa65effa2"
+    "62ff9e66ff9a6aff966eff9272ff8e76ff8a7aff867eff8282ff7e86ff7a8aff768eff7292ff6e96ff6a9aff66"
+    "9eff62a2ff5ea6ff5aaaff56aeff52b2ff4eb6ff4abaff46beff42c2ff3ec6ff3acaff36ceff32d2ff2ed6ff2a"
+    "daff26deff22e2ff1ee6ff1aeaff16eeff12f2ff0ef6ff0afaff06feff01fffc00fff800fff400fff000ffec00"
+    "ffe800ffe400ffe000ffdc00ffd800ffd400ffd000ffcc00ffc800ffc400ffc000ffbc00ffb800ffb400ffb000"
+    "ffac00ffa800ffa400ffa000ff9c00ff9800ff9400ff9000ff8c00ff8800ff8400ff8000ff7c00ff7800ff7400"
+    "ff7000ff6c00ff6800ff6400ff6000ff5c00ff5800ff5400ff5000ff4c00ff4800ff4400ff4000ff3c00ff3800"
+    "ff3400ff3000ff2c00ff2800ff2400ff2000ff1c00ff1800ff1400ff1000ff0c00ff0800ff0400ff0000fc0000"
+    "f80000f40000f00000ec0000e80000e40000e00000dc0000d80000d40000d00000cc0000c80000c40000c00000"
+    "bc0000b80000b40000b00000ac0000a80000a40000a000009c00009800009400009000008c0000880000840000"
+    "800000"
+), np.uint8).reshape(256, 3)
 
 
 def _build_renderer(camera, rc, with_semantic):
@@ -52,6 +83,35 @@ def _build_renderer(camera, rc, with_semantic):
                                     camera_grad=False)
 
     return render
+
+
+def _depth_colormap(depth: np.ndarray, vmin: float = 0.0, vmax: float = 6.0) -> np.ndarray:
+    """JET-coloured depth image, RGB uint8."""
+    normalized = np.clip((depth - vmin) / (vmax - vmin), 0, 1)
+    return JET_RGB[(normalized * 255).astype(np.uint8)]
+
+
+def _save_frame_artifacts(eval_dir: str, t: int, out, color_hwc: np.ndarray,
+                          depth_gt: np.ndarray, pred_label=None, gt_label=None,
+                          colors_map=None) -> None:
+    """Per-frame rendered and GT RGB, depth and leaf-label PNGs."""
+    dirs = {n: os.path.join(eval_dir, n) for n in
+            ("renders", "renders_depth", "rgb", "depth", "rendered_semantic")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    im = out.im.permute(1, 2, 0).clamp(0, 1).cpu().numpy()
+    write_png(os.path.join(dirs["renders"], f"gs_{t:04d}.png"), (im * 255).astype(np.uint8))
+    write_png(os.path.join(dirs["renders_depth"], f"gs_{t:04d}.png"),
+              _depth_colormap(out.depth.cpu().numpy()))
+    write_png(os.path.join(dirs["rgb"], f"gt_{t:04d}.png"),
+              np.clip(color_hwc, 0, 255).astype(np.uint8))
+    write_png(os.path.join(dirs["depth"], f"gt_{t:04d}.png"), _depth_colormap(depth_gt))
+    if pred_label is not None and colors_map is not None:
+        write_png(os.path.join(dirs["rendered_semantic"], f"sem_{t:04d}.png"),
+                  visualize_label(pred_label, colors_map))
+        if gt_label is not None:
+            write_png(os.path.join(dirs["rendered_semantic"], f"sem_{t:04d}_gt.png"),
+                      visualize_label(gt_label, colors_map))
 
 
 def _image(color: np.ndarray, dev) -> torch.Tensor:
@@ -111,18 +171,12 @@ def run_final_eval(
     device="cuda",
 ) -> Dict[str, float]:
     dev = resolve_device(device)
-    if save_frames:
-        raise NotImplementedError(
-            "save_frames (per-frame image dumps, semantic figures) is not ported yet "
-            "(ROADMAP.md, queue 1 path 5)")
-    if config.get("model", {}).get("eval_gt_transfer", False):
-        raise NotImplementedError(
-            "model.eval_gt_transfer is not ported yet (ROADMAP.md, queue 1 path 5)")
     os.makedirs(eval_dir, exist_ok=True)
     eval_every = config.get("eval_every", 5)
     num_frames = num_frames or len(dataset)
     semantic = hasattr(dataset, "num_semantic")
     tree_mode = semantic and isinstance(dataset.num_semantic, list)
+    gt_transfer = bool(config.get("model", {}).get("eval_gt_transfer", False))
     class_names = getattr(dataset, "semantic_class", None)
     sparse_ids = getattr(dataset, "semantic_id", None)
 
@@ -139,9 +193,9 @@ def run_final_eval(
     mlp_t = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in mlp.items()} \
         if mlp else None
 
-    psnrs, msssims, d_rmse, d_l1 = [], [], [], []
+    psnrs, msssims, lpips_vals, d_rmse, d_l1 = [], [], [], [], []
     iou_acc = M.IoUAccumulator()
-    M.lpips_fn(config.get("lpips_weights"))     # raises when weights are given
+    lpips = M.lpips_fn(config.get("lpips_weights"), dev)
     iou_txt = os.path.join(eval_dir, "sem_iou_2flat.txt")
 
     for t in range(num_frames):
@@ -158,6 +212,8 @@ def run_final_eval(
             psnrs.append(float(M.reference_psnr(out.im, im_gt, valid_t)))
             m = valid_t.float()[None]
             msssims.append(float(M.ms_ssim(out.im.clamp(0, 1) * m, im_gt * m)))
+            if lpips is not None:
+                lpips_vals.append(lpips((out.im * m).clamp(0, 1), im_gt * m))
         rmse, l1 = M.reference_depth_metrics(out.depth.cpu().numpy(), np.asarray(depth_gt),
                                              valid)
         d_rmse.append(rmse)
@@ -189,6 +245,17 @@ def run_final_eval(
                 class_ids = list(sparse_ids)
             else:
                 class_ids = list(range(int(n_cls)))
+            if gt_transfer:
+                cmap = np.asarray(dataset.colors_map_all)
+                p, g = pred.cpu().numpy(), gt_leaf.cpu().numpy()
+                if sparse_ids is not None:
+                    # the palette is indexed densely: transfer in dense space
+                    sid = np.asarray(sparse_ids)
+                    p = gt_transfer_labels(np.searchsorted(sid, p), np.searchsorted(sid, g), cmap)
+                    p = sid[np.clip(p, 0, len(sid) - 1)]
+                else:
+                    p = gt_transfer_labels(p, g, cmap)
+                pred = torch.as_tensor(p, device=dev)
             if verbose_iou:
                 print(f"current frame is: {t}")
             f_miou, f_mbiou, f_iou, f_biou = iou_acc.add_frame(
@@ -200,6 +267,28 @@ def run_final_eval(
                 f.write(f"mean_iou: {f_miou:.4f}, mean_biou: {f_mbiou:.4f}\n")
                 f.write(f"mean_iou_per_class: {f_iou}\n")
                 f.write(f"mean_biou_per_class: {f_biou}\n\n")
+
+        if save_frames:
+            labelled = semantic and out.semantic is not None
+            _save_frame_artifacts(
+                eval_dir, t, out, np.asarray(color), np.asarray(depth_gt),
+                pred_label=pred.cpu().numpy() if labelled else None,
+                gt_label=gt_leaf.cpu().numpy() if labelled else None,
+                colors_map=(np.asarray(dataset.colors_map_all)
+                            if semantic and hasattr(dataset, "colors_map_all") else None))
+
+    if semantic and tree_mode and save_frames:
+        if hasattr(dataset, "colors_map_all"):
+            n_leaf = int(dataset.num_semantic[-1])
+            names = class_names or [str(i) for i in range(n_leaf)]
+            plot_semantic_legend(range(min(n_leaf, len(names))), names,
+                                 np.asarray(dataset.colors_map_all), eval_dir,
+                                 "semantic_class_Legend_leaf")
+        if "semantic" in gauss:
+            show_semantic(lambda t: render(gauss, t).semantic, dataset, num_frames, eval_dir,
+                          mlp=mlp_t, frames=config.get("show_semantic_frames"))
+        else:
+            print("show_semantic skipped: the map has no semantic channels")
 
     try:
         gt_all = params_np["gt_w2c_all_frames"]
@@ -217,7 +306,7 @@ def run_final_eval(
         "ate_rmse_cm": ate_cm,
         "psnr": float(np.mean(psnrs)) if psnrs else 0.0,
         "ms_ssim": float(np.mean(msssims)) if msssims else 0.0,
-        "lpips": float("nan"),
+        "lpips": float(np.mean(lpips_vals)) if lpips_vals else float("nan"),
         "depth_l1_cm": float(np.mean(d_l1)) * 100 if d_l1 else 0.0,
         "depth_rmse_cm": float(np.mean(d_rmse)) * 100 if d_rmse else 0.0,
         "miou_pct": miou * 100,

@@ -21,10 +21,12 @@ from PIL import Image
 
 from fabricate import REPLICA_TREE_JSON, fabricate_replica, fabricate_scannet, make_scene_images
 from hierslam_torch.datasets import base as tbase
+from hierslam_torch.datasets import _REGISTRY as T_REGISTRY
 from hierslam_torch.datasets import get_dataset as t_get_dataset
 from hierslam_torch.datasets import tree as ttree
 from hierslam_torch.utils import image_io as iio
 from hierslam_tpu.datasets import base as jbase
+from hierslam_tpu.datasets import _REGISTRY as J_REGISTRY
 from hierslam_tpu.datasets import get_dataset as j_get_dataset
 from hierslam_tpu.datasets import tree as jtree
 
@@ -269,11 +271,12 @@ def test_replica_loader_resized_and_strided(tmp_path):
             assert np.array_equal(x, y)
 
 
-def test_unported_loaders_say_so(tmp_path):
-    for name in ("scannetpp", "tum", "icl"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_get_dataset({"dataset_name": name}, str(tmp_path), "x")
-    cfg = tbase.load_dataset_config(os.path.join(ROOT, "configs", "data", "tum.yaml"))
-    cfg["dataset_name"] = "replica"
-    with pytest.raises(NotImplementedError, match="distortion"):
-        t_get_dataset(cfg, str(tmp_path), "x")
+@pytest.mark.parametrize("name", sorted(J_REGISTRY))
+def test_every_registry_name_is_ported(name):
+    """Every dataset name of the JAX package's registry resolves to the
+    port's class of the same name (``tests/test_torch_misc_loaders.py`` and
+    the tests above hold each against the JAX loader)."""
+    cls = T_REGISTRY[name]
+    assert cls.__name__ == J_REGISTRY[name].__name__
+    assert cls.__module__.startswith("hierslam_torch.datasets.")
+    assert issubclass(cls, tbase.RGBDDataset)

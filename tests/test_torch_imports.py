@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``hierslam_torch``, not
-``chip_smoke.py`` and not ``tools/real_shape_run_torch.py`` imports ``jax``
+``chip_smoke.py`` and not ``tools/real_shape_run_torch.py`` or
+``tools/tum_drift_torch.py`` imports ``jax``
 or ``hierslam_tpu``, and none imports
 ``cv2``, ``imageio``, ``yaml`` or ``PIL`` (checked on the source, so a lazy
 import inside a function counts too; matplotlib and tqdm are imported only
@@ -35,7 +36,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [os.path.join(ROOT, "chip_smoke.py"),
-                                  os.path.join(ROOT, "tools", "real_shape_run_torch.py")],
+                                  os.path.join(ROOT, "tools", "real_shape_run_torch.py"),
+                                  os.path.join(ROOT, "tools", "tum_drift_torch.py")],
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_import(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
@@ -71,6 +73,7 @@ def _disk_entry_points(tmp_path):
     from test_e2e import small_config
 
     from hierslam_torch.eval.runner import run_final_eval, run_nvs_eval
+    from hierslam_torch.scripts import eval_novel_view
     from hierslam_torch.slam.pipeline import SLAMRunner, run_slam
 
     basedir, seq, _ = fabricate_replica(str(tmp_path / "d"), n_frames=2, semantic=True)
@@ -88,6 +91,15 @@ def _disk_entry_points(tmp_path):
     def dataset():
         return SLAMRunner(cfg, device="cpu").dataset
 
+    def finished_run():
+        """A config file of a finished run of ``pn``."""
+        os.makedirs(os.path.join(cfg["workdir"], cfg["run_name"]), exist_ok=True)
+        np.savez(os.path.join(cfg["workdir"], cfg["run_name"], "params.npz"), **pn)
+        path = str(tmp_path / "config_finished.py")
+        with open(path, "w") as f:
+            f.write(f"config = {cfg!r}\n")
+        return path
+
     return {
         "SLAMRunner_config": lambda **kw: SLAMRunner(cfg, **kw),
         "run_slam": lambda **kw: run_slam(dict(cfg, data=dict(cfg["data"], num_frames=1)),
@@ -96,12 +108,15 @@ def _disk_entry_points(tmp_path):
                                                       **kw),
         "run_nvs_eval": lambda **kw: run_nvs_eval(dataset(), pn, cfg, str(tmp_path / "n"),
                                                   **kw),
+        "eval_novel_view": lambda **kw: eval_novel_view.main(
+            [finished_run()] + [f"--{k}={v}" for k, v in kw.items()]),
     }
 
 
 @pytest.mark.parametrize("name", ["make_tracker", "make_mapper", "make_mapper_stream",
                                   "make_densifier", "SLAMRunner", "SLAMRunner_config",
-                                  "run_slam", "run_final_eval", "run_nvs_eval"])
+                                  "run_slam", "run_final_eval", "run_nvs_eval",
+                                  "eval_novel_view"])
 def test_entry_points_need_cuda_unless_cpu(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
@@ -111,7 +126,8 @@ def test_entry_points_need_cuda_unless_cpu(name, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             SLAMRunner({"workdir": str(tmp_path), "run_name": "x"}, dataset=[])
         return
-    if name in ("SLAMRunner_config", "run_slam", "run_final_eval", "run_nvs_eval"):
+    if name in ("SLAMRunner_config", "run_slam", "run_final_eval", "run_nvs_eval",
+                "eval_novel_view"):
         run = _disk_entry_points(tmp_path)[name]
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run()
