@@ -116,7 +116,30 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    prune, through the final eval and the K against 2K check; its launch
    counts, 0 plain calls, peak memory, stream rows against 78,000, dropped
    pairs; K3/K4 on its largest mapping stream and K1/K2 on the 2K check's
-   densest class (8,192 slots a tile).
+   densest class (8,192 slots a tile);
+13. classic: configs/replica/hierslam_nosemantic_run.py (the ladder
+   mapper, F = 3) on 8 procedural frames at 1200x680 with
+   ``mapping.use_gaussian_splatting_densification=True``,
+   ``raster.visible_budget=0`` and a densify schedule that fires at
+   iterations 20 and 40 of each 60-iteration phase: the clones, splits
+   and prunes of each event, the launch counts (every segment of a phase
+   bins the window again and renders as before), 0 plain calls, finite
+   losses and ``params.npz``; K1/K2 on the first mapping table after a
+   densify event; then one classic phase of the 96x64 room on the GPU and
+   the CPU from the same state, whose clone and split sets must be equal
+   but for gaussians within 1e-3 of the gradient threshold (counted);
+14. aniso: [classic]'s final map with per-axis log-scale offsets in
+   [log 0.5, log 2] and random unit quaternions (a numpy seed), frames
+   1-3 tracked again with the pose cache and without
+   (``track_use_cache=False``): both tracking_iter_ms, the launch counts,
+   K1/K2 on the cached tracker's first table; both trackers on the 96x64
+   map made anisotropic, GPU against CPU (first loss and final pose
+   within 1e-2);
+15. visualize: ``python3 -m hierslam_torch.scripts.visualize`` on the
+   [cli] run (``--frames-only --semantic --viz-scale 1.0 --every 4``):
+   the PNGs, K1 launches, K1 on its first table; frame 0 through
+   ``render_trajectory_frames`` on the GPU against the CPU at a quarter
+   of the size.
 
 The launch counts of phases 4-6 include the two t = 0 progress renders (K1
 at each ``bucket_spec`` class) that ``SLAMRunner.step`` makes.
@@ -2172,6 +2195,461 @@ def real_shape_phase():
     return ok, out, launches
 
 
+CLASSIC_DENSIFY = dict(start_after=10, densify_every=20, stop_after=50, remove_big_after=30)
+# the shipped grad_thresh (2e-4) at 96x64, scaled by the pixel count above
+# it: the mapping loss is a mean over the image, so a gaussian's mean
+# |dL/d means2D| falls as 1/pixels (at 1200x680 nothing reaches 2e-4)
+CLASSIC_THRESH_PIXELS = 2e-4 * 96 * 64
+CLASSIC_FRAMES = 8      # mapping at t = 0 and t = 7 under the shipped map_every = 8
+NEAR_THRESH_REL = 1e-3  # accumulated gradients this close to grad_thresh may decide either way
+# the 96x64 GPU-vs-CPU runs: every tile list whole (frame 0 inserts 6,144 gaussians)
+SMALL_RUN = dict(map_capacity=65536)
+SMALL_RASTER = dict(bucket_spec=((-1, 1024),), track_bucket_spec=((-1, 1024),))
+
+
+def plain_frames(ds):
+    """``ds`` without its labels: a dataset of the non-semantic configs."""
+    class Plain:
+        def __len__(self):
+            return len(ds)
+
+        def __getitem__(self, t):
+            return ds[t][:4]
+
+    return Plain()
+
+
+def classic_config(workdir: str, n: int, pixels: int, **extra):
+    """configs/replica/hierslam_nosemantic_run.py (the ladder mapper, F = 3)
+    with classic densification on: ``visible_budget=0``, which it needs, a
+    densify schedule that fires inside a 60-iteration phase (the shipped
+    ``start_after=500`` never does) and ``grad_thresh`` for frames of
+    ``pixels`` (``CLASSIC_THRESH_PIXELS``)."""
+    from hierslam_torch.config import load_config
+
+    cfg = load_config(REPLICA_CONFIGS[0])
+    cfg["mapping"]["use_gaussian_splatting_densification"] = True
+    cfg["mapping"]["densify_dict"] = dict(cfg["mapping"]["densify_dict"], **CLASSIC_DENSIFY,
+                                          grad_thresh=CLASSIC_THRESH_PIXELS / pixels)
+    cfg["raster"] = dict(cfg["raster"], visible_budget=0)
+    cfg["data"]["num_frames"] = n
+    cfg.update(workdir=workdir, **extra)
+    return cfg
+
+
+@contextlib.contextmanager
+def recording_densify(events: list, after=None):
+    """While active, every ``densify_step`` of a classic mapping phase leaves
+    (iteration, clone mask, split mask, mean gradient, pruned count, rows
+    before) in ``events``, and calls ``after()`` once it is done.  The
+    masks are the function's own rule, computed here from its inputs."""
+    import torch
+
+    from hierslam_torch.slam import mapping
+
+    step = mapping.densify_step
+
+    def recording(params, variables, opt, it, cfg, *a, **kw):
+        active = variables["active"]
+        grads = variables["means2D_gradient_accum"] / variables["denom"].clamp_min(1e-12)
+        grads = torch.where(torch.isnan(grads) | ~active, torch.zeros_like(grads), grads)
+        small = params["log_scales"].exp().amax(1) <= 0.01 * variables["scene_radius"]
+        dense = grads >= cfg.grad_thresh
+        clone, split = dense & small & active, dense & ~small & active
+        out = step(params, variables, opt, it, cfg, *a, **kw)
+        pruned = int((active & ~out[1]["active"]).sum()) - int(split.sum())
+        seen = grads[variables["denom"] > 0]
+        pct = (torch.quantile(seen[:2**24].float(), torch.tensor([0.5, 0.9, 0.99],
+                                                              device=seen.device)).tolist()
+               + [float(seen.max())] if seen.numel() else [])
+        events.append(dict(it=it, clone=clone.cpu(), split=split.cpu(), grads=grads.cpu(),
+                           pruned=pruned, rows=int(variables["n_active"]),
+                           overflow=int(out[3]), seen=int(seen.numel()), pct=pct))
+        if after is not None:
+            after()
+        return out
+
+    mapping.densify_step = recording
+    try:
+        yield
+    finally:
+        mapping.densify_step = step
+
+
+def classic_phase():
+    """Phase 13 (the module docstring).  Returns (ok, JSON rows, launches,
+    the run's final state, the 96x64 GPU-vs-CPU run's state after its
+    phase)."""
+    import numpy as np
+    import torch
+
+    from hierslam_torch.config import raster_config
+    from hierslam_torch.slam.densify_classic import DensifyConfig
+    from hierslam_torch.slam.pipeline import SLAMRunner
+
+    tag = "[classic]"
+    n = CLASSIC_FRAMES
+    cfg = classic_config(tempfile.mkdtemp(), n, FRAME["W"] * FRAME["H"])
+    print(f"{tag} {os.path.basename(REPLICA_CONFIGS[0])} on {n} procedural frames at "
+          f"{FRAME['W']}x{FRAME['H']}; overrides: "
+          "mapping.use_gaussian_splatting_densification=True, raster.visible_budget=0, "
+          f"densify_dict {json.dumps(CLASSIC_DENSIFY)} and grad_thresh "
+          f"{cfg['mapping']['densify_dict']['grad_thresh']:.6g} (2e-4 at 96x64, scaled by "
+          "the pixel count)", flush=True)
+    ds = plain_frames(room_dataset(n, FRAME["W"], FRAME["H"], FRAME["f"]))
+    runner = SLAMRunner(cfg, dataset=ds, device="cuda")
+    rc = raster_config(cfg)
+    dcfg = DensifyConfig(**cfg["mapping"]["densify_dict"])
+    events, tables, armed = [], [], [False]
+    reset_counts()
+    t0 = time.time()
+    with recording_densify(events, after=lambda: armed.__setitem__(0, True)), \
+            recording_blend_fwd(tables, pick=lambda tab: armed[0] and tab.requires_grad):
+        for t in range(n):
+            runner.step(t)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, plain = read_counts()
+    summ = runner.runtime_summary()
+    it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
+    n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
+    n_cls = ladder_classes(rc, runner.H, runner.W)
+    n_tcls = track_classes(rc, runner.H, runner.W)
+    ev = dcfg.events(it_m)
+    want = {"blend_fwd": (n - 1) * it_t * n_tcls + (n_map - 1) + 2 * n_cls
+            + n_map * it_m * n_cls,
+            "blend_bwd": (n - 1) * it_t * n_tcls + n_map * it_m * n_cls,
+            "stream_fwd": 0, "stream_bwd": 0}
+    for e in events:
+        print(f"{tag} densify at iteration {e['it']}: clones {int(e['clone'].sum())} splits "
+              f"{int(e['split'].sum())} pruned {e['pruned']} of {e['rows']} rows, overflow "
+              f"{e['overflow']}; mean |dL/d means2D| of the {e['seen']} seen gaussians, "
+              "median / 90% / 99% / max: " + " ".join(f"{v:.3e}" for v in e["pct"]),
+              flush=True)
+    trace = runner.last_mapping_trace
+    print(f"{tag} launches {json.dumps(launches)} expected {json.dumps(want)} ({n_map} mapping "
+          f"phases of {len(ev) + 1} segments, events at {list(ev)}, each segment binning the "
+          f"window again; {n_tcls} tracking and {n_cls} ladder classes); plain calls "
+          f"{json.dumps(plain)}; classic_densify_overflow "
+          f"{float(trace['classic_densify_overflow'][0]):.0f}", flush=True)
+    pn = runner.finalize()
+    path = os.path.join(cfg["workdir"], cfg["run_name"], "params.npz")
+    with np.load(path) as data:
+        missing = [k for k in PARAM_KEYS if k != "semantic" and k not in data]
+        finite = all(np.isfinite(data[k]).all() for k in data.files)
+    errs = centre_err_cm(runner, room_dataset(n, FRAME["W"], FRAME["H"], FRAME["f"]), n)
+    print(f"{tag} tracking_iter_ms {summ['tracking_iter_ms']:.3f} mapping_iter_ms "
+          f"{summ['mapping_iter_ms']:.3f} wall_s {wall:.1f} n_active {summ['n_active']}; "
+          f"params.npz missing keys {missing}, all finite {finite}; camera-centre error vs GT "
+          "(cm): " + " ".join(f"{e:.3f}" for e in errs), flush=True)
+    born = [int(e["clone"].sum() + e["split"].sum()) for e in events]
+    ok = (launches == want and not any(plain.values()) and len(events) == n_map * len(ev)
+          and all(b > 0 for b in born) and not missing and finite
+          and float(trace["classic_densify_overflow"][0]) == 0
+          and bool(np.isfinite(trace["loss"]).all()) and bool(np.isfinite(errs).all()))
+    rows = []
+    if not tables:
+        print(f"{tag} no table after a densify event was recorded", flush=True)
+        ok = False
+    else:
+        table, slot_ok, gx = tables[0]
+        T, K, C = table.shape
+        print(f"{tag} first mapping table after the first densify event: T={T} K={K} "
+              f"F={C - 7} grid_x={gx}, {100 * float(slot_ok.float().mean()):.1f}% of the slots "
+              "live", flush=True)
+        rows, good = check_kernels(f"classic mapping table after a densify T={T} K={K} "
+                                   f"F={C - 7}", table, slot_ok, gx, 20, seed=9,
+                                   flips_allowed=2)
+        ok &= good
+    good, small_state = classic_agreement()
+    for row in rows:
+        row["path"] = "classic"
+    return ok and good, rows, launches, runner_state(runner, "cuda"), small_state
+
+
+def classic_agreement() -> bool:
+    """One classic mapping phase (frame 0 of the 96x64 room) on the GPU and
+    on the CPU from the same state: the clone and split sets of each event
+    must be equal but for gaussians whose mean gradient lies within
+    ``NEAR_THRESH_REL`` of ``grad_thresh`` (K2's atomics sum in the order
+    they land, so such a sum may round to either side).  Once an event
+    differs, later events are compared on the rows both maps share.
+    Returns (ok, the GPU runner's state after the phase)."""
+    import numpy as np
+
+    from hierslam_torch.slam.pipeline import SLAMRunner
+
+    tag = "[classic]"
+    ds = plain_frames(room_dataset(3, 96, 64, 48.0, n_frames_arc=40))
+    runners, events = [], {}
+    for dev in ("cuda", "cpu"):
+        cfg = classic_config(tempfile.mkdtemp(), 3, 96 * 64, **SMALL_RUN)
+        cfg["raster"].update(SMALL_RASTER)
+        runners.append(SLAMRunner(cfg, dataset=ds, device=dev))
+    set_runner_state(runners[1], runner_state(runners[0], "cpu"))
+    thresh = float(runners[0].config["mapping"]["densify_dict"]["grad_thresh"])
+    for r, dev in zip(runners, ("cuda", "cpu")):
+        events[dev] = []
+        with recording_densify(events[dev]):
+            r.step(0)
+    g, c = events["cuda"], events["cpu"]
+    ok = len(g) == len(c) > 0
+    shared, near_all, off_all = None, 0, 0
+    for eg, ec in zip(g, c):
+        rows = shared or min(len(eg["clone"]), len(ec["clone"]))
+        near = ((eg["grads"][:rows] - thresh).abs() <= NEAR_THRESH_REL * thresh) | (
+            (ec["grads"][:rows] - thresh).abs() <= NEAR_THRESH_REL * thresh)
+        differ = (eg["clone"][:rows] != ec["clone"][:rows]) | (
+            eg["split"][:rows] != ec["split"][:rows])
+        off = int((differ & ~near).sum())
+        near_all += int(near.sum())
+        off_all += off
+        print(f"{tag} 96x64 GPU vs CPU, densify at iteration {eg['it']}: clones "
+              f"{int(eg['clone'].sum())}/{int(ec['clone'].sum())} splits "
+              f"{int(eg['split'].sum())}/{int(ec['split'].sum())}; rows compared {rows}, "
+              f"within {NEAR_THRESH_REL:g} of grad_thresh {int(near.sum())}, deciding apart "
+              f"{int(differ.sum())} ({off} of them not near the threshold; allowed 0)",
+              flush=True)
+        if differ.any() and shared is None:
+            shared = eg["rows"]
+    la, lb = (r.last_mapping_trace["loss"] for r in runners)
+    rel = np.abs(la - lb) / np.abs(lb)
+    print(f"{tag} 96x64 GPU vs CPU: {near_all} gaussians near the threshold over "
+          f"{len(g)} events, {off_all} decided apart elsewhere; mapping loss max rel diff "
+          f"{rel.max():.3e} (first iteration {rel[0]:.3e})", flush=True)
+    return ok and off_all == 0, runner_state(runners[0], "cuda")
+
+
+ANISO_FRAMES = (1, 2, 3)   # re-tracked with the anisotropic map
+
+
+def make_anisotropic(state, seed: int = 0):
+    """``state`` (``runner_state``) with an anisotropic map: per-axis
+    log-scale offsets in [log 0.5, log 2] (as tests/test_render_cached.py
+    makes them) and random unit quaternions, from a numpy seed."""
+    import numpy as np
+    import torch
+
+    p = dict(state["params"])
+    n, dev = p["log_scales"].shape[0], p["log_scales"].device
+    rng = np.random.default_rng(seed)
+    off = rng.uniform(np.log(0.5), np.log(2.0), (n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    p["log_scales"] = p["log_scales"] + torch.as_tensor(off, device=dev)
+    p["unnorm_rotations"] = torch.as_tensor(q, device=dev)
+    return dict(state, params=p)
+
+
+def aniso_tracking(state, cfg_of, ds, dev: str, frames, record=None):
+    """``frames`` tracked from ``state`` on ``dev``, with the pose cache
+    and without: {use_cache: runner}.  ``cfg_of(use_cache)`` makes the
+    config; with ``record`` (a list), the cached tracker's first K1 table
+    is left there."""
+    from hierslam_torch.slam.pipeline import SLAMRunner
+
+    out = {}
+    for use_cache in (True, False):
+        r = SLAMRunner(cfg_of(use_cache), dataset=ds, device=dev)
+        set_runner_state(r, state_to(state, dev))
+        with (recording_blend_fwd(record, pick=lambda tab: tab.requires_grad)
+              if record is not None and use_cache else contextlib.nullcontext()):
+            for t in frames:
+                r.step(t)
+        out[use_cache] = r
+    return out
+
+
+def state_to(state, dev):
+    """A copy of ``state`` (``runner_state``) with its tensors on ``dev``."""
+    import copy
+
+    from hierslam_torch.slam import optim
+
+    def to(d):
+        return {k: v.to(dev, copy=True) for k, v in d.items()}
+
+    ms = state["mlp_state"]
+    return dict(state, params=to(state["params"]), variables=to(state["variables"]),
+                mlp=None if state["mlp"] is None else to(state["mlp"]),
+                mlp_state=None if ms is None else optim.AdamState(to(ms.mu), to(ms.nu),
+                                                                  ms.count),
+                rng=copy.deepcopy(state["rng"]))
+
+
+def aniso_phase(final_state, small_state):
+    """Phase 14 (the module docstring).  Returns (ok, JSON rows, launches)."""
+    import numpy as np
+    import torch
+
+    from hierslam_torch.config import raster_config
+    from hierslam_torch.slam.tracking import est_w2c
+
+    tag = "[aniso]"
+    n = CLASSIC_FRAMES
+    room = room_dataset(n, FRAME["W"], FRAME["H"], FRAME["f"])
+    state = make_anisotropic(final_state)
+    workdir = tempfile.mkdtemp()
+
+    def cfg_of(use_cache):
+        return classic_config(workdir, n, FRAME["W"] * FRAME["H"], track_use_cache=use_cache)
+
+    rc = raster_config(cfg_of(True))
+    live = state["variables"]["active"]
+    ls = state["params"]["log_scales"][live]
+    print(f"{tag} [classic]'s final map made anisotropic: {int(live.sum())} live gaussians, "
+          f"log-scale spread per gaussian (max - min axis) up to "
+          f"{float((ls.amax(1) - ls.amin(1)).max()):.3f}, random unit quaternions; frames "
+          f"{list(ANISO_FRAMES)} tracked again with the pose cache and without", flush=True)
+    tables = []
+    reset_counts()
+    runs = aniso_tracking(state, cfg_of, plain_frames(room), "cuda", ANISO_FRAMES, tables)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    it_t = cfg_of(True)["tracking"]["num_iters"]
+    n_tcls = track_classes(rc, FRAME["H"], FRAME["W"])
+    per = len(ANISO_FRAMES) * it_t * n_tcls
+    want = {"blend_fwd": 2 * per, "blend_bwd": 2 * per, "stream_fwd": 0, "stream_bwd": 0}
+    ok = launches == want and not any(plain.values())
+    for use_cache, r in runs.items():
+        summ = r.runtime_summary()
+        errs = centre_err_cm(r, room, n)
+        losses = r.last_tracking_trace["loss"]
+        print(f"{tag} {'cached' if use_cache else 'uncached'} tracker: tracking_iter_ms "
+              f"{summ['tracking_iter_ms']:.3f}; frame {ANISO_FRAMES[-1]} loss {losses[0]:.6g} "
+              f"-> {losses[-1]:.6g}; camera-centre error vs GT (cm) at frames "
+              f"{list(ANISO_FRAMES)}: " + " ".join(f"{errs[t]:.3f}" for t in ANISO_FRAMES),
+              flush=True)
+        ok &= bool(np.isfinite(losses).all()) and bool(np.isfinite(errs).all())
+    print(f"{tag} launches {json.dumps(launches)} expected {json.dumps(want)} ({n_tcls} "
+          f"tracking classes, both trackers); plain calls {json.dumps(plain)}", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+
+    # the 96x64 map of [classic]'s GPU-vs-CPU run, made anisotropic, frame 1
+    small = make_anisotropic(small_state, seed=1)
+    ds = plain_frames(room_dataset(3, 96, 64, 48.0, n_frames_arc=40))
+
+    def small_cfg(use_cache):
+        cfg = classic_config(tempfile.mkdtemp(), 3, 96 * 64, track_use_cache=use_cache,
+                             **SMALL_RUN)
+        cfg["raster"].update(SMALL_RASTER)
+        return cfg
+
+    by_dev = {dev: aniso_tracking(small, small_cfg, ds, dev, (1,)) for dev in ("cuda", "cpu")}
+    for use_cache in (True, False):
+        g, c = by_dev["cuda"][use_cache], by_dev["cpu"][use_cache]
+        lg, lc = g.last_tracking_trace["loss"][0], c.last_tracking_trace["loss"][0]
+        rel = abs(lg - lc) / abs(lc)
+        pose = float((est_w2c(g.params, 1).cpu() - est_w2c(c.params, 1)).abs().max())
+        print(f"{tag} 96x64 GPU vs CPU, {'cached' if use_cache else 'uncached'} tracker on "
+              f"frame 1: first loss {lg:.9g} / {lc:.9g} (rel {rel:.3e}), final pose max abs "
+              f"diff {pose:.3e} (both allowed 1e-2, as [reference])", flush=True)
+        ok &= rel <= 1e-2 and pose <= 1e-2
+    rows = []
+    if not tables:
+        print(f"{tag} no cached tracking table was recorded", flush=True)
+        ok = False
+    else:
+        table, slot_ok, gx = tables[0]
+        T, K, C = table.shape
+        a, b, c = (table[..., i][slot_ok] for i in (2, 3, 4))
+        print(f"{tag} first cached tracking table: T={T} K={K} F={C - 7} grid_x={gx}, "
+              f"{100 * float(slot_ok.float().mean()):.1f}% of the slots live; smallest "
+              f"(ac - b^2) / ac over live slots {float(((a * c - b * b) / (a * c)).min()):.3e}",
+              flush=True)
+        rows, good = check_kernels(f"anisotropic cached tracking table T={T} K={K} F={C - 7}",
+                                   table, slot_ok, gx, 20, seed=10, flips_allowed=2)
+        ok &= good
+    for row in rows:
+        row["path"] = "aniso"
+    return ok, rows, launches
+
+
+VIZ_EVERY = 4
+VIZ_CHECK_SCALE = 0.25   # the GPU-vs-CPU frame: the plain blend on the CPU at full size is slow
+
+
+def visualize_phase(finished):
+    """Phase 15 (the module docstring).  Returns (ok, JSON rows, launches)."""
+    import numpy as np
+    import torch
+
+    from hierslam_torch.config import load_config, raster_config
+    from hierslam_torch.datasets.tree import label_colormap
+    from hierslam_torch.scripts import visualize
+    from hierslam_torch.utils.image_io import read_png
+    from hierslam_torch.viz.recon import render_trajectory_frames
+
+    tag = "[visualize]"
+    wrapper, run_dir = finished["wrapper"], finished["run_dir"]
+    viz_dir = os.path.join(run_dir, "viz")
+    cfg = load_config(wrapper)
+    params = dict(np.load(os.path.join(run_dir, "params.npz")))
+    n = params["cam_unnorm_rots"].shape[-1]
+    argv = [wrapper, "--frames-only", "--semantic", "--viz-scale", "1.0", "--every",
+            str(VIZ_EVERY)]
+    record = []
+    reset_counts()
+    t0 = time.time()
+    with contextlib.chdir(ROOT), recording_blend_fwd(record, n_feat=3 + sum(SEM_LEVELS)):
+        out = visualize.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, plain = read_counts()
+    shown = list(range(0, n, VIZ_EVERY))
+    expect = sorted([f"recon_{t:04d}.png" for t in shown] + [f"sem_{t:04d}.png" for t in shown])
+    got = sorted(f for f in os.listdir(viz_dir) if f.endswith(".png"))
+    sizes = {png_size(os.path.join(viz_dir, f)) for f in got}
+    n_cls = ladder_classes(raster_config(cfg), FRAME["H"], FRAME["W"])
+    want = {"blend_fwd": len(shown) * n_cls, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0}
+    print(f"{tag} python3 -m hierslam_torch.scripts.visualize {' '.join(argv[1:])} on the "
+          f"[cli] run ({n} frames, F = {3 + sum(SEM_LEVELS)}, its semantic_decoder.npz): wrote "
+          f"{len(got)} PNGs to {out}: {got} (expected {expect}), sizes "
+          f"{sorted(sizes)}; launches {json.dumps(launches)} expected {json.dumps(want)} "
+          f"({len(shown)} renders of {n_cls} ladder classes); plain calls {json.dumps(plain)}; "
+          f"wall_s {wall:.2f}", flush=True)
+    ok = (out == viz_dir and got == expect and sizes == {(FRAME["W"], FRAME["H"])}
+          and launches == want and not any(plain.values()))
+
+    # frame 0 through render_trajectory_frames on the GPU and on the CPU
+    mlp = dict(np.load(os.path.join(run_dir, "semantic_decoder.npz")))
+    cmap = label_colormap(max(int(mlp["w"].shape[0]), 2))
+    dirs = [tempfile.mkdtemp() for _ in range(2)]
+    for dev, d in zip(("cuda", "cpu"), dirs):
+        render_trajectory_frames(params, d, cfg, every=n, viz_scale=VIZ_CHECK_SCALE,
+                                 semantic=True, mlp=mlp, colormap=cmap, device=dev)
+    diffs = {}
+    for name in ("recon_0000.png", "sem_0000.png"):
+        a, b = (read_png(os.path.join(d, name)).astype(np.int16) for d in dirs)
+        d = np.abs(a - b).max(-1)
+        diffs[name] = (int((d > 1).sum()), int((d > 0).sum()), int(d.max()), d.size)
+    beyond, _, _, pix = diffs["recon_0000.png"]
+    sem_apart = diffs["sem_0000.png"][1]
+    print(f"{tag} frame 0 at viz scale {VIZ_CHECK_SCALE}, GPU vs CPU: recon pixels beyond 1 "
+          f"grey level {beyond} of {pix} (allowed {2 * n_cls}: 2 rounding ties a class), "
+          f"differing at all {diffs['recon_0000.png'][1]}, max {diffs['recon_0000.png'][2]}; "
+          f"semantic pixels with another leaf {sem_apart} (allowed {pix // 200}: argmax "
+          "between logits within K1's tolerance)", flush=True)
+    ok &= beyond <= 2 * n_cls and sem_apart <= pix // 200
+    rows = []
+    if not record:
+        print(f"{tag} no K1 table was recorded", flush=True)
+        ok = False
+    else:
+        table, slot_ok, gx = record[0]
+        T, K, C = table.shape
+        print(f"{tag} first render's K1 table: T={T} K={K} F={C - 7} grid_x={gx}, "
+              f"{100 * float(slot_ok.float().mean()):.1f}% of the slots live", flush=True)
+        r, good = check_kernels(f"visualize table T={T} K={K} F={C - 7}", table, slot_ok, gx,
+                                20, seed=11, flips_allowed=2)
+        rows = [r[0]]
+        ok &= good
+    for row in rows:
+        row["path"] = "visualize"
+    return ok, rows, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", action="store_true", help="build and kernel checks only")
@@ -2286,7 +2764,7 @@ def main() -> int:
         fail("kernel check at the main path's shapes")
     launches = {k: None for k in kernels.launch_counts}
     eval_launches = scannet_launches = replica_launches = real_shape_launches = launches
-    nvs_launches = tum_launches = launches
+    nvs_launches = tum_launches = classic_launches = aniso_launches = viz_launches = launches
     if not args.kernels:
         final = {}
         for backend in ("pallas", "stream"):
@@ -2371,11 +2849,33 @@ def main() -> int:
             fail("real_shape phase (the real-shape tool's prefix at 1200x680, K3/K4 on its "
                  "largest stream, K1/K2 on the 2K check's densest class)")
         print(f"[real_shape] done at {time.time() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        good, r, classic_launches, final_state, small_state = classic_phase()
+        rows += r
+        if not good:
+            fail("classic phase (clone/split densification in the ladder mapper at 1200x680, "
+                 "K1/K2 on its table after a densify event, the 96x64 clone and split sets GPU "
+                 "vs CPU)")
+        print(f"[classic] done at {time.time() - t0:.1f} s", flush=True)
+        good, r, aniso_launches = aniso_phase(final_state, small_state)
+        del final_state, small_state
+        rows += r
+        if not good:
+            fail("aniso phase (an anisotropic map tracked with and without the pose cache, "
+                 "K1/K2 on its cached tracking table, both trackers GPU vs CPU)")
+        print(f"[aniso] done at {time.time() - t0:.1f} s", flush=True)
+        good, r, viz_launches = visualize_phase(finished)
+        rows += r
+        if not good:
+            fail("visualize phase (the viewer CLI on the [cli] run, K1 on its table, a frame "
+                 "GPU vs CPU)")
+        print(f"[visualize] done at {time.time() - t0:.1f} s", flush=True)
     if args.tracking_table and not os.path.isfile(args.tracking_table):
         torch.save(recorded, args.tracking_table)
     by_path = {"cli": eval_launches, "scannet": scannet_launches,
                "replica": replica_launches, "real_shape": real_shape_launches,
-               "eval_novel_view": nvs_launches, "tum": tum_launches}
+               "eval_novel_view": nvs_launches, "tum": tum_launches,
+               "classic": classic_launches, "aniso": aniso_launches, "visualize": viz_launches}
     for row in rows:
         row["launches"] = by_path.get(row.pop("path", None), launches)[row.pop("kernel")]
     print(json.dumps({"kernels": rows}), flush=True)

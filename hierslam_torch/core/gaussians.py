@@ -98,11 +98,12 @@ def insert_gaussians(
     variables: Variables,
     new_fields: Params,
     mask: torch.Tensor,
-    time_idx: float,
+    time_idx,
 ) -> Tuple[Params, Variables, torch.Tensor]:
     """Append the masked candidate rows into free capacity slots, in order.
-    Returns (params, variables, n_overflowed); rows past capacity are
-    counted, not lost silently."""
+    ``time_idx`` is one timestep for every row or a per-candidate ``[M]``
+    tensor.  Returns (params, variables, n_overflowed); rows past capacity
+    are counted, not lost silently."""
     capacity = params["means3D"].shape[0]
     n_active = variables["n_active"]
     slot = n_active + torch.cumsum(mask.to(torch.int64), 0) - 1
@@ -122,7 +123,7 @@ def insert_gaussians(
     act[tgt] = True
     variables["active"] = act
     ts = variables["timestep"].clone()
-    ts[tgt] = float(time_idx)
+    ts[tgt] = time_idx[ok] if isinstance(time_idx, torch.Tensor) else float(time_idx)
     variables["timestep"] = ts
     variables["n_active"] = n_active + n_insert
     return out, variables, n_requested - n_insert

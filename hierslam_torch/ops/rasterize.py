@@ -195,12 +195,15 @@ def rasterize(
     active: Optional[torch.Tensor] = None,
     config: RasterConfig = RasterConfig(),
     binning_cache: Optional[Binning] = None,
+    means2D_offset: Optional[torch.Tensor] = None,
     device="cuda",
 ) -> RenderOutput:
     """Rasterize N Gaussians (camera-frame means, post-activation opacity
     ``[N]``/``[N, 1]`` and scales ``[N, 1]``/``[N, 3]``, optional semantic
     logits ``[N, S]`` blended like colors) on ``device``, where the inputs
-    must lie."""
+    must lie.  ``means2D_offset`` ([N, 2] zeros) is added to the screen
+    means: its gradient is dL/d(screen-space mean) in pixels, what classic
+    densification accumulates."""
     dev = resolve_device(device)
     if means3D.device != dev:
         raise ValueError(f"rasterize on {dev}, inputs on {means3D.device}")
@@ -221,8 +224,12 @@ def rasterize(
     rect_cols = [c.detach().float() for c in (
         pc.rect_min_x, pc.rect_min_y, pc.rect_max_x, pc.rect_max_y, pc.valid)]
     c_main = 7 + len(feat_cols)
+    px, py = pc.x, pc.y
+    if means2D_offset is not None:
+        px = px + means2D_offset[:, 0]
+        py = py + means2D_offset[:, 1]
     table = pack_cols_table(
-        [pc.x, pc.y, pc.conic_a, pc.conic_b, pc.conic_c, opacities, pc.depth]
+        [px, py, pc.conic_a, pc.conic_b, pc.conic_c, opacities, pc.depth]
         + feat_cols + rect_cols
     )
     g_comb = gather_rows(table, _combined_idx(lists), c_main,

@@ -1,12 +1,15 @@
 """Pose-only rendering for camera tracking (port of ``hierslam_tpu/ops/render_tracked.py``).
 
 While tracking, the map is frozen and only the 7-dof pose moves.  The
-frame binning and the per-slot raw attributes (world mean, color, opacity,
-isotropic scale) are gathered once per frame at the propagated pose, with
-a pixel margin for the in-frame drift; each iteration then only transforms
+frame binning and the per-slot raw attributes (world mean, color, opacity
+and shape) are gathered once per frame at the propagated pose, with a
+pixel margin for the in-frame drift; each iteration then only transforms
 the cached means, projects them per slot, re-applies the exact
 current-pose rect and frustum test, and blends.  Gradients reduce straight
-to the pose.  Isotropic maps only, as on the main path.
+to the pose.  The shape of an isotropic map is one scale a slot
+(``cov2d = s^2 J J^T + 0.3 I``); of an anisotropic one the frame-constant
+world covariance ``R s s^T R^T`` as six upper-triangle entries, folded
+with the current rotation ``W`` as ``(J W) S (J W)^T + 0.3 I``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from hierslam_torch.core import transforms
+from hierslam_torch.ops import projection
 from hierslam_torch.ops.rasterize import RasterConfig, _assemble_buckets, compute_binning
 from hierslam_torch.ops.render_pallas import render_tiles_pallas
 
@@ -25,7 +29,9 @@ class TrackCache(NamedTuple):
     means_world: Tuple[torch.Tensor, ...]  # [n_b, k_b, 3]
     colors: Tuple[torch.Tensor, ...]       # [n_b, k_b, 3]
     opacity: Tuple[torch.Tensor, ...]      # [n_b, k_b] post-sigmoid
-    scale: Tuple[torch.Tensor, ...]        # [n_b, k_b] post-exp scale
+    # isotropic: [n_b, k_b] post-exp scale; anisotropic: [n_b, k_b, 6] world
+    # covariance (xx, xy, xz, yy, yz, zz)
+    scale: Tuple[torch.Tensor, ...]
     slot_valid: Tuple[torch.Tensor, ...]   # [n_b, k_b]
     count: torch.Tensor                    # [T] true overlap counts
     radii0: torch.Tensor                   # [N] radii at the cache pose
@@ -36,21 +42,22 @@ class TrackCache(NamedTuple):
 def build_track_cache(params, active, q0, t0, camera, config: RasterConfig,
                       margin_px: float = 12.0) -> TrackCache:
     """Bin + gather the frame-constant attributes at the initial pose."""
-    if params["log_scales"].shape[1] != 1:
-        raise NotImplementedError(
-            "the port tracks isotropic maps only (ROADMAP.md, off-path items)"
-        )
-    from hierslam_torch.ops import projection
-
+    aniso = params["log_scales"].shape[1] == 3
     means_cam0, rots_cam0 = transforms.transform_to_frame(
         params["means3D"], params["unnorm_rotations"], q0, t0,
-        gaussians_grad=False, camera_grad=False,
+        gaussians_grad=False, camera_grad=False, transform_rots=aniso,
     )
     scales = torch.exp(params["log_scales"])
     opac = torch.sigmoid(params["logit_opacities"])
     b = compute_binning(means_cam0, scales, rots_cam0, camera, config,
                         active=active, margin_px=margin_px, opacities=opac)
-    table = torch.cat([params["means3D"], params["rgb_colors"], opac, scales], 1)
+    if aniso:
+        cov = projection.quat_scale_to_cov3d(params["unnorm_rotations"], scales,
+                                             camera.scale_modifier)
+        shape_cols = cov[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]]
+    else:
+        shape_cols = scales[:, :1]
+    table = torch.cat([params["means3D"], params["rgb_colors"], opac, shape_cols], 1)
     mw, cols, opas, scs, valids = [], [], [], [], []
     for idx in b.lists.idx:
         safe = idx.clamp_min(0)
@@ -61,7 +68,7 @@ def build_track_cache(params, active, q0, t0, camera, config: RasterConfig,
         mw.append(g[..., 0:3])
         cols.append(g[..., 3:6])
         opas.append(torch.where(valid, g[..., 6], torch.zeros_like(g[..., 6])))
-        scs.append(g[..., 7])
+        scs.append(g[..., 7:13] if aniso else g[..., 7])
         valids.append(valid)
     prep0 = projection.preprocess(means_cam0, scales, rots_cam0, camera,
                                   config.tile_shape, active=active)
@@ -107,10 +114,24 @@ def render_tracked(cache: TrackCache, q: torch.Tensor, t: torch.Tensor, camera,
         jyy = fy * inv_z
         jxz = -fx * txc * inv_z
         jyz = -fy * tyc * inv_z
-        s2 = cache.scale[bi] * cache.scale[bi]
-        c_xx = s2 * (jxx * jxx + jxz * jxz) + 0.3
-        c_xy = s2 * (jxz * jyz)
-        c_yy = s2 * (jyy * jyy + jyz * jyz) + 0.3
+        sc = cache.scale[bi]
+        if sc.dim() == 3:
+            Wm = w2c[:3, :3]
+            t0 = [jxx * Wm[0, c] + jxz * Wm[2, c] for c in range(3)]
+            t1 = [jyy * Wm[1, c] + jyz * Wm[2, c] for c in range(3)]
+            S = [[sc[..., 0], sc[..., 1], sc[..., 2]],
+                 [sc[..., 1], sc[..., 3], sc[..., 4]],
+                 [sc[..., 2], sc[..., 4], sc[..., 5]]]
+            a0 = [t0[0] * S[0][c] + t0[1] * S[1][c] + t0[2] * S[2][c] for c in range(3)]
+            b1 = [t1[0] * S[0][c] + t1[1] * S[1][c] + t1[2] * S[2][c] for c in range(3)]
+            c_xx = a0[0] * t0[0] + a0[1] * t0[1] + a0[2] * t0[2] + 0.3
+            c_xy = a0[0] * t1[0] + a0[1] * t1[1] + a0[2] * t1[2]
+            c_yy = b1[0] * t1[0] + b1[1] * t1[1] + b1[2] * t1[2] + 0.3
+        else:
+            s2 = sc * sc
+            c_xx = s2 * (jxx * jxx + jxz * jxz) + 0.3
+            c_xy = s2 * (jxz * jyz)
+            c_yy = s2 * (jyy * jyy + jyz * jyz) + 0.3
         det = c_xx * c_yy - c_xy * c_xy
         det_ok = det != 0.0
         det_inv = 1.0 / torch.where(det_ok, det, torch.ones_like(det))

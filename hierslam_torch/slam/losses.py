@@ -110,16 +110,24 @@ def render_packed_stream(table: torch.Tensor, active, binning_cache: rs.StreamBi
 def render_gaussians(params: Params, active, cam_quat, cam_trans, camera,
                      raster_cfg: RasterConfig, *, with_semantic: bool,
                      gaussians_grad: bool, camera_grad: bool,
-                     binning_cache=None) -> RenderOutput:
+                     binning_cache=None, means2D_offset=None) -> RenderOutput:
     """transform_to_frame + activations (sigmoid opacity, exp scale, raw
     semantic logits) + rasterize.  A visible-rank binning cache first
     compacts the parameters to its ``[V]`` prefix, so per-gaussian work
     scales with V; ``radii`` are then in compact space.  A
     :class:`~hierslam_torch.ops.render_stream.StreamBinning` cache renders
-    through the pair stream instead (isotropic maps, no pose gradient)."""
+    through the pair stream instead (isotropic maps, no pose gradient).
+
+    ``means2D_offset`` ([N, 2] zeros) is the classic-densification hook:
+    its gradient is dL/d(screen-space mean).  It needs full-N screen
+    means, so neither the stream nor a visible-rank cache takes it."""
     if isinstance(binning_cache, rs.StreamBinning):
         if params["log_scales"].shape[1] != 1:
             raise NotImplementedError("stream backend supports isotropic maps only")
+        if means2D_offset is not None:
+            raise NotImplementedError(
+                "classic densification is incompatible with the stream "
+                "backend (needs full-N means2D bookkeeping)")
         if camera_grad:
             raise NotImplementedError(
                 "stream backend does not provide camera gradients; "
@@ -130,6 +138,10 @@ def render_gaussians(params: Params, active, cam_quat, cam_trans, camera,
                                     cam_trans, camera, raster_cfg, 3 + sem_w)
     vis = getattr(getattr(binning_cache, "lists", None), "vis_ids", None)
     if vis is not None:
+        if means2D_offset is not None:
+            raise NotImplementedError(
+                "classic densification (means2D gradients) needs full-N "
+                "radii bookkeeping — incompatible with visible_budget")
         keys = ["means3D", "unnorm_rotations", "rgb_colors", "logit_opacities", "log_scales"]
         if with_semantic and "semantic" in params:
             keys.append("semantic")
@@ -147,7 +159,7 @@ def render_gaussians(params: Params, active, cam_quat, cam_trans, camera,
         means_cam, gp["rgb_colors"], torch.sigmoid(gp["logit_opacities"][:, 0]),
         torch.exp(gp["log_scales"]), transforms.normalize(rots), camera,
         semantics=sem, active=active, config=raster_cfg, binning_cache=binning_cache,
-        device=means_cam.device,
+        means2D_offset=means2D_offset, device=means_cam.device,
     )
 
 

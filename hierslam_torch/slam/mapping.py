@@ -16,12 +16,17 @@
   and inactive rows carry the sentinel opacity logit, and rotations, which
   an isotropic stream render does not read, stay as they are.
 
-Classic clone/split densification is not ported yet (ROADMAP.md).
+With a ``densify_cfg`` (``use_gaussian_splatting_densification``, ladder
+mapper only) the phase also runs classic clone/split densification
+(``slam/densify_classic.py``): each iteration accumulates
+``||dL/d means2D||`` over the gaussians it saw, and at each densify event
+the clones and splits land and the window is binned again, so that they
+render from the next iteration on.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace as _dc_replace
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -33,6 +38,8 @@ from hierslam_torch.ops import render_stream as rs
 from hierslam_torch.ops.rasterize import RasterConfig, compute_binning
 from hierslam_torch.ops.ssim import ssim_ref_stats
 from hierslam_torch.slam import optim
+from hierslam_torch.slam.densify_classic import (DensifyConfig, accumulate_mean2d_gradient,
+                                                 densify_step)
 from hierslam_torch.slam.losses import (LossConfig, lower_median, mapping_loss, render_gaussians,
                                         render_packed_stream)
 
@@ -92,22 +99,50 @@ def make_densifier(camera, raster_cfg: RasterConfig, sil_thres: float,
 
 def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
                 lrs: Dict[str, float], num_iters: int, prune_cfg: PruneConfig,
-                mlp_lr: float = 5e-4, bin_margin_px: float = 4.0, device="cuda"):
+                mlp_lr: float = 5e-4, bin_margin_px: float = 4.0,
+                densify_cfg: Optional[DensifyConfig] = None, device="cuda"):
     """Returns ``map_phase(params, variables, window, rand_idx, mlp,
-    mlp_state) -> (params, variables, mlp, mlp_state, losses)``.
+    mlp_state, generator=None, noise=None) -> (params, variables, mlp,
+    mlp_state, losses)``.
 
     ``window``: im [W,3,H,W], depth [W,H,W], labels [W,L+1,H,W] (optional),
     time_idx [W]; ``rand_idx`` [num_iters] host ints into the window.
-    ``losses`` holds one [num_iters] device tensor per loss term."""
+    ``losses`` holds one [num_iters] device tensor per loss term.  With
+    ``densify_cfg`` the split children's draws come from ``generator``, or
+    from ``noise``: one sequence of ``num_to_split_into`` ``[N, 3]``
+    tensors per densify event."""
     dev = resolve_device(device)
     with_sem = bool(loss_cfg.sem_levels)
     packed = raster_cfg.backend == "stream"
+    use_classic = densify_cfg is not None
+    if use_classic and raster_cfg.visible_budget > 0:
+        raise ValueError("use_gaussian_splatting_densification needs full-N means2D/"
+                         "radii bookkeeping — set raster.visible_budget=0 with it")
+    if use_classic and packed:
+        raise ValueError("use_gaussian_splatting_densification needs full-N means2D "
+                         "bookkeeping — use raster.backend 'pallas' or 'xla' with it")
+    events = densify_cfg.events(num_iters) if use_classic else ()
     # the stream mapper bins full-N: its costs scale with the pair stream,
     # and a visible budget would only truncate rendering
     compacted = raster_cfg.visible_budget > 0 and not packed
     bin_fn = rs.compute_stream_binning if packed else compute_binning
 
-    def map_phase(params, variables, window, rand_idx, mlp, mlp_state):
+    def bin_window(src, active, wq, wt):
+        """One amortized binning per window frame at the params ``src``."""
+        scales0 = torch.exp(src["log_scales"])
+        opac0 = torch.sigmoid(src["logit_opacities"])
+        binnings = []
+        for q, t in zip(wq, wt):
+            means_cam, _ = transforms.transform_to_frame(
+                src["means3D"], src["unnorm_rotations"], q, t,
+                gaussians_grad=False, camera_grad=False)
+            binnings.append(bin_fn(
+                means_cam, scales0, src["unnorm_rotations"], camera, raster_cfg,
+                active=active, margin_px=bin_margin_px, opacities=opac0, compact=compacted))
+        return binnings
+
+    def map_phase(params, variables, window, rand_idx, mlp, mlp_state, generator=None,
+                  noise=None):
         if params["means3D"].device != dev:
             raise ValueError(f"mapper built for {dev}, params on {params['means3D'].device}")
         variables = dict(variables)
@@ -137,28 +172,23 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
         n_win = tidx.shape[0]
         w_ssim = [ssim_ref_stats(window["im"][i]) for i in range(n_win)]
 
-        # amortized binning, one per window frame, at the phase-start params
+        # amortized binning at the phase-start params (the packed table
+        # holds the same values), again after each densify event
         with torch.no_grad():
-            scales0 = torch.exp(params["log_scales"])
-            opac0 = torch.sigmoid(params["logit_opacities"])
-            binnings = []
-            for i in range(n_win):
-                means_cam, _ = transforms.transform_to_frame(
-                    params["means3D"], params["unnorm_rotations"], wq[i], wt[i],
-                    gaussians_grad=False, camera_grad=False)
-                binnings.append(bin_fn(
-                    means_cam, scales0, params["unnorm_rotations"], camera, raster_cfg,
-                    active=variables["active"], margin_px=bin_margin_px,
-                    opacities=opac0, compact=compacted))
+            binnings = bin_window(params, variables["active"], wq, wt)
 
         wants_mlp = with_sem and loss_cfg.use_mlp and mlp is not None
         traces: Dict[str, list] = {}
+        n_slots = params["means3D"].shape[0]
+        n_classic_over = torch.zeros((), dtype=torch.int64, device=dev)
         for it in range(num_iters):
             k = int(rand_idx[it])
             labels = window["labels"][k].long() if "labels" in window else None
             leaves = {n: v.detach().requires_grad_(True) for n, v in gp.items()}
             mlp_l = ({n: v.detach().requires_grad_(True) for n, v in mlp.items()}
                      if wants_mlp else None)
+            m2d = (torch.zeros((n_slots, 2), device=dev, requires_grad=True)
+                   if use_classic else None)
             if packed:
                 out = render_packed_stream(leaves["table"], None, binnings[k], wq[k], wt[k],
                                            camera, raster_cfg, 3 + sem_w)
@@ -167,14 +197,19 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
                 full.update(leaves)
                 out = render_gaussians(full, variables["active"], wq[k], wt[k], camera,
                                        raster_cfg, with_semantic=with_sem, gaussians_grad=True,
-                                       camera_grad=False, binning_cache=binnings[k])
+                                       camera_grad=False, binning_cache=binnings[k],
+                                       means2D_offset=m2d)
             loss, parts = mapping_loss(out, window["im"][k], window["depth"][k], labels,
                                        mlp_l, it, loss_cfg, gt_ssim=w_ssim[k])
-            inputs = list(leaves.values()) + (list(mlp_l.values()) if wants_mlp else [])
+            inputs = (list(leaves.values()) + (list(mlp_l.values()) if wants_mlp else [])
+                      + ([m2d] if use_classic else []))
             grads = torch.autograd.grad(loss, inputs, allow_unused=True)
             grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
             ggp = dict(zip(leaves.keys(), grads[:len(leaves)]))
-            gmlp = dict(zip(mlp_l.keys(), grads[len(leaves):])) if wants_mlp else None
+            gmlp = (dict(zip(mlp_l.keys(), grads[len(leaves):len(leaves) + len(mlp_l)]))
+                    if wants_mlp else None)
+            if use_classic:   # after the backward, before prune and step
+                variables = accumulate_mean2d_gradient(variables, grads[-1], out.radii > 0)
 
             # prune (reference order: backward -> prune -> step)
             if (prune_cfg.start_after <= it <= prune_cfg.stop_after
@@ -228,10 +263,24 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
             for n, v in parts.items():
                 traces.setdefault(n, []).append(v)
 
+            if it in events:
+                full = dict(params)
+                full.update(gp)
+                e = events.index(it)
+                full, variables, opt, n_over = densify_step(
+                    full, variables, opt, it, densify_cfg, generator,
+                    None if noise is None else noise[e])
+                n_classic_over = n_classic_over + n_over
+                gp = {n: full[n] for n in gp}
+                with torch.no_grad():
+                    binnings = bin_window(full, variables["active"], wq, wt)
+
         out_params = dict(params)
         out_params.update(rs.unpack_table(gp["table"], sem_w) if packed
                           else {n: v.detach() for n, v in gp.items()})
         losses = {n: torch.stack(v) for n, v in traces.items()}
+        if use_classic:
+            losses["classic_densify_overflow"] = n_classic_over.float().expand(num_iters)
         return out_params, variables, mlp, mlp_state, losses
 
     return map_phase

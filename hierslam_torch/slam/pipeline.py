@@ -38,6 +38,7 @@ from hierslam_torch.datasets.base import load_dataset_config
 from hierslam_torch.eval.progress import plotting_available, report_progress
 from hierslam_torch.eval.runner import _build_renderer, run_final_eval
 from hierslam_torch.slam import optim
+from hierslam_torch.slam.densify_classic import DensifyConfig
 from hierslam_torch.slam.keyframes import Keyframe, KeyframeStore, keyframe_selection_overlap
 from hierslam_torch.slam.losses import LossConfig, mlp_init
 from hierslam_torch.slam.mapping import PruneConfig, make_densifier, make_mapper
@@ -137,7 +138,8 @@ class SLAMRunner:
         )
         self.tracker = make_tracker(
             self.camera, track_loss, rc, lr_quat=tcfg["lrs"]["cam_unnorm_rots"],
-            lr_trans=tcfg["lrs"]["cam_trans"], num_iters=tcfg["num_iters"], device=dev,
+            lr_trans=tcfg["lrs"]["cam_trans"], num_iters=tcfg["num_iters"],
+            use_cache=bool(config.get("track_use_cache", True)), device=dev,
         )
         mcfg = config["mapping"]
         map_loss = LossConfig(
@@ -153,14 +155,17 @@ class SLAMRunner:
             if k in mcfg.get("pruning_dict", {})
         }) if mcfg.get("prune_gaussians", False) else None
         map_lrs = {k: v for k, v in mcfg["lrs"].items() if k in G.GAUSSIAN_KEYS}
+        densify_cfg = None
         if mcfg.get("use_gaussian_splatting_densification", False):
-            raise NotImplementedError(
-                "classic clone/split densification is not ported yet (ROADMAP.md)")
+            dd = mcfg.get("densify_dict", {})
+            densify_cfg = DensifyConfig(**{k: dd[k] for k in DensifyConfig.__dataclass_fields__
+                                           if k in dd})
         if int(config.get("parallel", {}).get("map_data_devices", 0)) > 1:
             raise NotImplementedError("multi-device mapping is not ported yet (ROADMAP.md)")
         self.mapper = make_mapper(
             self.camera, map_loss, rc, map_lrs, num_iters=mcfg["num_iters"],
-            prune_cfg=prune or PruneConfig(start_after=10**9), device=dev,
+            prune_cfg=prune or PruneConfig(start_after=10**9), densify_cfg=densify_cfg,
+            device=dev,
         )
         self.densifier = make_densifier(self.camera, rc, mcfg["sil_thres"],
                                         self.num_semantic, device=dev)
@@ -445,7 +450,7 @@ class SLAMRunner:
             rand_idx = self.rng.integers(0, len(window_frames), cfg["mapping"]["num_iters"])
             p_b, v_b = self._sliced_state()
             p_b, v_b, self.mlp, self.mlp_state, losses = self.mapper(
-                p_b, v_b, window, rand_idx, self.mlp, self.mlp_state)
+                p_b, v_b, window, rand_idx, self.mlp, self.mlp_state, self.generator)
             losses = {k: v.cpu().numpy() for k, v in losses.items()}
             self._merge_params(p_b)
             self._merge_variables(v_b)

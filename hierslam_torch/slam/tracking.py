@@ -18,7 +18,7 @@ from hierslam_torch import resolve_device
 from hierslam_torch.core import transforms
 from hierslam_torch.ops.rasterize import RasterConfig, RenderOutput
 from hierslam_torch.ops.render_tracked import build_track_cache, render_tracked
-from hierslam_torch.slam.losses import LossConfig, tracking_loss
+from hierslam_torch.slam.losses import LossConfig, render_gaussians, tracking_loss
 
 Params = Dict[str, torch.Tensor]
 
@@ -65,14 +65,16 @@ def est_w2c(params: Params, time_idx: int) -> torch.Tensor:
 
 def make_tracker(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
                  lr_quat: float, lr_trans: float, num_iters: int,
-                 margin_px: float = 16.0, device="cuda"):
+                 use_cache: bool = True, margin_px: float = 16.0, device="cuda"):
     """Returns ``track(params, active, max_radius, im, depth, time_idx) ->
     (params, best_loss, max_radius, trace, carry)`` with the best pose
     written into the trajectory; ``track.continue_round(params, active, im,
     depth, time_idx, carry)`` runs ``num_iters`` more steps of the same Adam
-    run (the depth-loss escape hatch).  Renders come from the per-frame pose
-    cache (``ops/render_tracked.py``), built at the round's start pose with
-    a ``margin_px`` rect margin."""
+    run (the depth-loss escape hatch).  With ``use_cache`` renders come from
+    the per-frame pose cache (``ops/render_tracked.py``), built at the
+    round's start pose with a ``margin_px`` rect margin; without, every
+    iteration bins afresh and renders through ``render_gaussians`` with
+    the pose gradient."""
     dev = resolve_device(device)
     if raster_cfg.track_sat_margin >= 0.0:
         raster_cfg = _dc_replace(raster_cfg, sat_margin=raster_cfg.track_sat_margin)
@@ -88,24 +90,29 @@ def make_tracker(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
     def track_round(params, active, im_gt, depth_gt, time_idx, carry_in):
         t_idx = int(time_idx)
         q_cur, t_cur = carry_in[0], carry_in[1]
-        cache = build_track_cache(params, active, q_cur, t_cur, camera, raster_cfg,
-                                  margin_px=margin_px)
-        radii = cache.radii0
+        if use_cache:
+            cache = build_track_cache(params, active, q_cur, t_cur, camera, raster_cfg,
+                                      margin_px=margin_px)
 
         def loss_fn(q, t):
-            im, dep, med, fo, mask = render_tracked(cache, q, t, camera, raster_cfg)
-            out = RenderOutput(im=im, radii=radii, depth=dep, median_depth=med,
-                               final_opacity=fo, mask=mask, semantic=None,
-                               n_dropped=cache.n_dropped, tile_count=None)
+            if use_cache:
+                im, dep, med, fo, mask = render_tracked(cache, q, t, camera, raster_cfg)
+                out = RenderOutput(im=im, radii=cache.radii0, depth=dep, median_depth=med,
+                                   final_opacity=fo, mask=mask, semantic=None,
+                                   n_dropped=cache.n_dropped, tile_count=None)
+            else:
+                out = render_gaussians(params, active, q, t, camera, raster_cfg,
+                                       with_semantic=False, gaussians_grad=False,
+                                       camera_grad=True)
             loss, parts = tracking_loss(out, im_gt, depth_gt, loss_cfg)
-            return loss, parts
+            return loss, out.radii, parts
 
         (q, t, mq, vq, mt, vt, cnt, bq, bt, bloss, maxrad) = carry_in
         losses, d_ls, i_ls = [], [], []
         for _ in range(num_iters):
             q = q.detach().requires_grad_(True)
             t = t.detach().requires_grad_(True)
-            loss, parts = loss_fn(q, t)
+            loss, radii, parts = loss_fn(q, t)
             gq, gt = torch.autograd.grad(loss, (q, t))
             loss = loss.detach()
             q, t = q.detach(), t.detach()
