@@ -139,7 +139,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    [cli] run (``--frames-only --semantic --viz-scale 1.0 --every 4``):
    the PNGs, K1 launches, K1 on its first table; frame 0 through
    ``render_trajectory_frames`` on the GPU against the CPU at a quarter
-   of the size.
+   of the size;
+16. parallel, keyframe data-parallel mapping and the tile-sharded render
+   over ``torch.distributed`` (``gloo``), every rank on this one card: the
+   flagship config as shipped with ``parallel.map_data_devices = 2`` on the
+   8 frames at 1200x680 through ``SLAMRunner(cfg, mesh=...)``: finite
+   losses, each rank's launch counts (the worker: K3/K4 of every mapping
+   iteration, nothing else) and 0 plain calls, equal checksums of the ranks'
+   maps at every phase's end, the camera-centre error, tracking_iter_ms,
+   mapping_iter_ms and the phase-start broadcast's bytes and seconds; the
+   tile-sharded render of its final map over 2 and 4 ranks against the
+   single render (1e-5 image, 1e-4 depth); at 96x64 the data-parallel
+   mapper with equal columns against the single mapper with both backends
+   under deterministic algorithms (JAX's test tolerances); K1 on the last
+   strip's tables (rows past the image) and K3/K4 on rank 1's first mapping
+   stream against their plain versions, with timings.
 
 The launch counts of phases 4-6 include the two t = 0 progress renders (K1
 at each ``bucket_spec`` class) that ``SLAMRunner.step`` makes.
@@ -2650,6 +2664,323 @@ def visualize_phase(finished):
     return ok, rows, launches
 
 
+PARALLEL_MAP_D = 2             # [parallel]: ranks of the flagship's data-parallel mapping
+PARALLEL_RENDER_D = 4          # [parallel]: ranks of the second tile-sharded render
+WORKER_RECORD = {}             # in a mesh worker: the inputs of a wrapper's first calls
+
+
+def worker_record(kind: str, limit: int) -> None:
+    """In a mesh worker: keep copies of the arguments of the next ``limit``
+    calls of the wrapper ``kernels.<kind>`` ("blend_fwd": K1, "stream_fwd":
+    K3), for ``worker_recorded``.  The wrapper is wrapped from here, the
+    package has no hook for it; every call still goes to the kernel."""
+    from hierslam_torch.ops import kernels
+
+    launch = getattr(kernels, kind)
+    WORKER_RECORD[kind] = seen = []
+
+    def recording(*args):
+        if len(seen) < limit:
+            seen.append(tuple(a.detach().clone() if hasattr(a, "detach") else a for a in args))
+        return launch(*args)
+
+    setattr(kernels, kind, recording)
+
+
+def worker_recorded(kind: str):
+    """In a mesh worker: the recorded calls of ``kind``, on the CPU."""
+    return [tuple(a.cpu() if hasattr(a, "cpu") else a for a in c)
+            for c in WORKER_RECORD.pop(kind, [])]
+
+
+def mesh_counts(mesh):
+    """-> [(launches, plain calls)] of every rank since its counts were zeroed."""
+    return [read_counts()] + mesh.run_workers(read_counts)
+
+
+def zero_counts(mesh) -> None:
+    reset_counts()
+    mesh.run_workers(reset_counts)
+
+
+def parallel_map_run(cfg_path: str, record: dict):
+    """[parallel] (a): the flagship config as shipped with
+    ``parallel.map_data_devices = 2`` on the 8 procedural frames at
+    1200x680, both ranks on this card.  Rank 1's first K3 call is left in
+    ``record["stream"]``.  Returns (ok, runner, mesh, worker launches)."""
+    import numpy as np
+    import torch
+
+    from hierslam_torch.config import load_config
+    from hierslam_torch.parallel import make_mesh
+    from hierslam_torch.slam.pipeline import SLAMRunner
+
+    tag = "[parallel map]"
+    n, D = 8, PARALLEL_MAP_D
+    ds = room_dataset(n, 1200, 680, 600.0)
+    cfg = load_config(cfg_path)
+    cfg["data"]["num_frames"] = n
+    cfg["workdir"] = tempfile.mkdtemp()
+    cfg["parallel"] = dict(map_data_devices=D)
+    t0 = time.time()
+    mesh = make_mesh(D, devices=["cuda:0"] * D)
+    print(f"{tag} mesh of {D} ranks on one card up in {time.time() - t0:.1f} s", flush=True)
+    mesh.run_workers(worker_record, "stream_fwd", 1)
+    runner = SLAMRunner(cfg, dataset=ds, device="cuda", mesh=mesh)
+    zero_counts(mesh)
+    ok = True
+    n_track = n_map = n_dens = 0
+    checks, casts = [], []
+    t_run = time.time()
+    for t in range(n):
+        runner.step(t)
+        line = f"{tag} frame {t}:"
+        if t > 0:
+            tl = runner.last_tracking_trace["loss"]
+            n_track += 1
+            ok &= bool(np.isfinite(tl).all())
+            line += f" tracking loss {tl[0]:.6g} -> {tl[-1]:.6g}"
+        if t == 0 or (t + 1) % cfg["map_every"] == 0:
+            ml = runner.last_mapping_trace["loss"]
+            n_map += 1
+            n_dens += int(t > 0)
+            ok &= bool(np.isfinite(ml).all())
+            cs = mesh.stats["checksums"]
+            checks.append(len(cs) == D and len(set(cs)) == 1)
+            casts.append((mesh.stats["broadcast_bytes"], mesh.stats["broadcast_s"]))
+            line += (f" mapping loss {ml[0]:.6g} -> {ml[-1]:.6g}; rank checksums {cs}; "
+                     f"phase-start broadcast {casts[-1][0]} bytes in {casts[-1][1]:.4f} s")
+        print(line + f" n_active {int(runner.variables['n_active'])}", flush=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t_run
+    counts = mesh_counts(mesh)
+    recorded = mesh.run_workers(worker_recorded, "stream_fwd")[0]
+    record["stream"] = recorded[0] if recorded else None
+    summ = runner.runtime_summary()
+    it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
+    n_prog = 2 * ladder_classes(runner.rc, runner.H, runner.W)
+    want0 = {"blend_fwd": n_track * it_t + n_dens + n_prog, "blend_bwd": n_track * it_t,
+             "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m}
+    want_w = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": n_map * it_m,
+              "stream_bwd": n_map * it_m}
+    for r, (launches, plain) in enumerate(counts):
+        want = want0 if r == 0 else want_w
+        print(f"{tag} rank {r} launches {json.dumps(launches)} expected {json.dumps(want)} "
+              f"plain calls {json.dumps(plain)}", flush=True)
+        ok &= launches == want and not any(plain.values())
+    errs = centre_err_cm(runner, ds, n)
+    print(f"{tag} camera-centre error vs GT (cm): " + " ".join(f"{e:.3f}" for e in errs)
+          + f" (allowed < {CENTRE_BOUND_CM})", flush=True)
+    print(f"{tag} tracking_iter_ms {summ['tracking_iter_ms']:.3f} mapping_iter_ms "
+          f"{summ['mapping_iter_ms']:.3f} mapping_frame_s {summ['mapping_frame_s']:.3f} "
+          f"map_broadcast_bytes {summ['map_broadcast_bytes']} map_broadcast_s "
+          f"{summ['map_broadcast_s']:.4f} map_collective_s {summ['map_collective_s']:.4f} "
+          f"(both inside mapping_frame_s) wall_s {wall:.1f} n_active "
+          f"{summ['n_active']}; equal checksums at every phase's end: {all(checks)}", flush=True)
+    ok &= all(checks) and len(checks) == n_map and max(errs) < CENTRE_BOUND_CM
+    worker_launches = {k: sum(c[0][k] for c in counts[1:]) for k in counts[0][0]}
+    return ok, runner, mesh, worker_launches
+
+
+def parallel_equal_check(cfg_path: str, backend: str, mesh) -> bool:
+    """[parallel] (b): at 96x64 the data-parallel mapper on ``mesh`` (2
+    ranks on this card) with equal columns against the single mapper, both
+    built by ``SLAMRunner`` from the flagship config, on one state after 3
+    frames, under deterministic algorithms on every rank (the caller's
+    ``deterministic_algorithms`` here, set on the workers by the caller);
+    JAX's test tolerances (loss 5e-4 relative, means and colours 3e-4)."""
+    import numpy as np
+    import torch
+
+    from hierslam_torch.config import load_config
+    from hierslam_torch.parallel.mesh import tensors_of
+    from hierslam_torch.slam.keyframes import Keyframe
+    from hierslam_torch.slam.pipeline import SLAMRunner
+
+    ds = room_dataset(3, 96, 64, 48.0, n_frames_arc=40)
+    cfg = load_config(cfg_path)
+    cfg["raster"].update(backend=backend, bucket_spec=((4, 512), (-1, 256)),
+                         track_max_per_tile=256)
+    cfg["data"]["num_frames"] = 3
+    cfg.update(map_every=3, map_capacity=65536, workdir=tempfile.mkdtemp())
+    cfg["tracking"]["num_iters"] = 10
+    cfg["mapping"]["num_iters"] = 10
+    single = SLAMRunner(cfg, dataset=ds, device="cuda")
+    for t in range(3):
+        single.step(t)
+    frames = []
+    for t in range(3):
+        im, depth, labels, _ = single._load_frame(t)
+        frames.append(Keyframe(id=t, w2c=single._est_w2c(t), color=im, depth=depth,
+                               labels=labels))
+    window = single._window_arrays(frames)
+    p_b, v_b = single._sliced_state()
+    idx = np.random.default_rng(0).integers(0, 3, cfg["mapping"]["num_iters"])
+    a = single.mapper(p_b, v_b, window, idx, single.mlp, single.mlp_state)
+    dp = SLAMRunner(dict(cfg, parallel=dict(map_data_devices=mesh.size)), dataset=ds,
+                    device="cuda", mesh=mesh)
+    b = dp.mapper(p_b, v_b, window, np.repeat(idx[:, None], mesh.size, 1), single.mlp,
+                  single.mlp_state)
+    cs = mesh.stats["checksums"]
+    la, lb = a[4]["loss"].cpu().numpy(), b[4]["loss"].cpu().numpy()
+    d_loss = float(np.max(np.abs(la - lb) / np.abs(la)))
+    d_par = {k: float((a[0][k] - b[0][k]).abs().max()) for k in ("means3D", "rgb_colors")}
+    bits = all(torch.equal(x, y) for x, y in zip(tensors_of(a), tensors_of(b)))
+    print(f"[parallel equal] {backend} mapper at 96x64, {mesh.size} ranks with equal columns "
+          f"vs the single mapper: loss rel {d_loss:.3e} (allowed 5e-4), means3D abs "
+          f"{d_par['means3D']:.3e}, rgb_colors abs {d_par['rgb_colors']:.3e} (allowed 3e-4); "
+          f"equal to the bit: {bits}; rank checksums {cs}", flush=True)
+    return d_loss <= 5e-4 and max(d_par.values()) <= 3e-4 and len(set(cs)) == 1
+
+
+def strip_raster_config(rc):
+    """``rc`` with one class of 8,192 slots and a 256-tile emission cap: a
+    ladder that drops no pair of the final map, so that a strip's tiles
+    get the lists the whole image's tiles get (the shipped ladder's
+    capacities are per render: a strip's class caps would truncate other
+    tiles than the whole image's)."""
+    from dataclasses import replace
+
+    return replace(rc, bucket_spec=((-1, 8192),), max_tiles_per_gaussian=256, max_refs=256)
+
+
+# [parallel] (c): the whole-image render against the tile-sharded one.  Each
+# ladder class blends on a virtual grid one tile high, where its j-th tile
+# starts at x = 16 j: a float32 screen x there keeps 2^-8 px at the 3,225
+# tiles of 1200x680 and 2^-9 at a strip's 1,650, so the two renders round
+# apart over every slot of a pixel (mean image difference at most 1e-5),
+# and where a slot's alpha rounds to the other side of 1/255 the pixel
+# moves by up to 2/255 of a colour (or a depth): at most two such slots a
+# pixel.  The strips themselves must be the strips one device renders, to
+# the bit.
+WHOLE_IMAGE_TOL = {"im_mean": 1e-5, "slot_flips": 2}
+
+
+def parallel_render_check(runner, mesh, record: Optional[dict] = None):
+    """[parallel] (c): the tile-sharded render of ``runner``'s map (its
+    live gaussians at frame 0's camera, ``strip_raster_config`` of its
+    raster config) over ``mesh`` against the single render.  With
+    ``record``, the last rank's K1 calls (the last strip's tables) are left
+    in ``record["strip"]``.  Returns (ok, launches of all ranks)."""
+    import torch
+
+    from hierslam_torch.core.camera import strip_camera
+    from hierslam_torch.parallel import make_tile_sharded_render
+    from hierslam_torch.slam.losses import render_gaussians
+
+    D = mesh.size
+    tag = f"[parallel render D={D}]"
+    act = runner.variables["active"]
+    params = {k: v[act] for k, v in runner.params.items() if v.shape[0] == act.shape[0]}
+    rc = strip_raster_config(runner.rc)
+    q = torch.tensor([1.0, 0, 0, 0], device=runner.device)
+    t = torch.zeros(3, device=runner.device)
+    ref = render_gaussians(params, None, q, t, runner.camera, rc, with_semantic=False,
+                           gaussians_grad=False, camera_grad=False)
+    render = make_tile_sharded_render(mesh, runner.camera, rc)
+    if record is not None:
+        mesh.run_workers(worker_record, "blend_fwd", 4)
+    zero_counts(mesh)
+    t0 = time.time()
+    im, depth = render(params)
+    if im.is_cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = mesh_counts(mesh)
+    if record is not None:
+        record["strip"] = mesh.run_workers(worker_recorded, "blend_fwd")[-1]
+    # the strips as one device renders them, stacked and cropped
+    strips = []
+    th = rc.tile_shape[0]
+    tiles_y = -(-runner.H // th)
+    strip_h = -(-tiles_y // D) * th
+    cam_s = strip_camera(runner.camera, strip_h)
+    for r in range(D):
+        out = render_gaussians(params, None, q, t, cam_s, rc, with_semantic=False,
+                               gaussians_grad=False, camera_grad=False,
+                               pixel_offset_y=float(r * strip_h))
+        strips.append(torch.cat([out.im, out.depth[None]], 0))
+    stacked = torch.cat(strips, 1)[:, :runner.H]
+    exact = torch.equal(stacked[:3], im) and torch.equal(stacked[3], depth)
+    d_im = (im - ref.im).abs()
+    d_d = (depth - ref.depth).abs()
+    launches = {k: sum(c[0][k] for c in counts) for k in counts[0][0]}
+    plain = sum(sum(c[1].values()) for c in counts)
+    tol = WHOLE_IMAGE_TOL
+    im_max = tol["slot_flips"] * 2 / 255 * float(params["rgb_colors"].abs().max())
+    d_max = tol["slot_flips"] * 2 / 255 * float(ref.depth.max())
+    print(f"{tag} {runner.W}x{runner.H} in strips of {strip_h} rows ({D * strip_h - runner.H} "
+          f"rows past the image): equal to the bit to the strips rendered on one device: "
+          f"{exact}; against the whole-image render max abs err image {float(d_im.max()):.3e} "
+          f"(allowed {im_max:.3e}) depth {float(d_d.max()):.3e} (allowed {d_max:.3e}), "
+          f"mean image {float(d_im.mean()):.3e} (allowed {tol['im_mean']}), pixels beyond 1e-5 "
+          f"{int((d_im.amax(0) > 1e-5).sum())} of {runner.H * runner.W}; single render n_dropped "
+          f"{int(ref.n_dropped)} (must be 0); K1 launches on all ranks {launches['blend_fwd']} "
+          f"(one a rank), plain calls {plain}; wall_s {wall:.3f} (broadcast "
+          f"{mesh.stats['broadcast_bytes']} bytes in {mesh.stats['broadcast_s']:.4f} s)",
+          flush=True)
+    ok = (exact and float(d_im.max()) <= im_max and float(d_d.max()) <= d_max
+          and float(d_im.mean()) <= tol["im_mean"] and plain == 0
+          and launches["blend_fwd"] == D and int(ref.n_dropped) == 0)
+    return ok, launches
+
+
+def parallel_phase(cfg_path: str):
+    """Phase 16 (the module docstring).  Returns (ok, JSON rows, launches
+    of the workers' mapping, launches of the strip renders)."""
+    import torch
+
+    from hierslam_torch.config import load_config, raster_config
+    from hierslam_torch.ops import render_stream as rs
+
+    from hierslam_torch.parallel import make_mesh
+
+    record = {}
+    ok, runner, mesh, map_launches = parallel_map_run(cfg_path, record)
+    with mesh:
+        good, strip_launches = parallel_render_check(runner, mesh)
+        ok &= good
+        mesh.run_workers(torch.use_deterministic_algorithms, True)
+        with deterministic_algorithms():
+            for backend in ("stream", "pallas"):
+                ok &= parallel_equal_check(cfg_path, backend, mesh)
+    D = PARALLEL_RENDER_D
+    with make_mesh(D, devices=["cuda:0"] * D) as mesh:
+        good, strip_launches = parallel_render_check(runner, mesh, record=record)
+    ok &= good
+    del runner
+    torch.cuda.empty_cache()
+    rows = []
+    strips = record.get("strip") or []
+    if not strips:
+        print("[parallel] no K1 table of the last strip was recorded", flush=True)
+        ok = False
+    for i, (table, slot_ok, gx, _) in enumerate(strips):
+        table, slot_ok = table.cuda(), slot_ok.cuda()
+        T, K, C = table.shape
+        print(f"[parallel] last strip's K1 table {i + 1} of {len(strips)}: T={T} K={K} "
+              f"F={C - 7} grid_x={gx}, {100 * float(slot_ok.float().mean()):.1f}% of the slots "
+              "live", flush=True)
+        r, good = check_kernels(f"strip table T={T} K={K} F={C - 7}", table, slot_ok, gx,
+                                20 if i == 0 else 0, seed=12 + i, flips_allowed=2)
+        if r:
+            rows.append(dict(r[0], path="parallel_strip"))
+        ok &= good
+    if record.get("stream") is None:
+        print("[parallel] no stream of rank 1 was recorded", flush=True)
+        ok = False
+    else:
+        stream, sc, ro, gx, _, n_feat, img = (a.cuda() if hasattr(a, "cuda") else a
+                                              for a in record["stream"])
+        grid = raster_config(load_config(cfg_path)).grid(*img)
+        pad = stream[..., rs.COL_LOGIT] == rs.SENTINEL_LOGIT
+        r, good = check_stream(f"rank 1 first mapping stream R={stream.shape[0]} F={n_feat}",
+                               stream, sc, ro, pad, grid, n_feat, img, 20, flips_allowed=2)
+        rows += [dict(x, path="parallel_map") for x in r]
+        ok &= good
+    return ok, rows, map_launches, strip_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", action="store_true", help="build and kernel checks only")
@@ -2765,6 +3096,7 @@ def main() -> int:
     launches = {k: None for k in kernels.launch_counts}
     eval_launches = scannet_launches = replica_launches = real_shape_launches = launches
     nvs_launches = tum_launches = classic_launches = aniso_launches = viz_launches = launches
+    par_map_launches = par_strip_launches = launches
     if not args.kernels:
         final = {}
         for backend in ("pallas", "stream"):
@@ -2870,12 +3202,20 @@ def main() -> int:
             fail("visualize phase (the viewer CLI on the [cli] run, K1 on its table, a frame "
                  "GPU vs CPU)")
         print(f"[visualize] done at {time.time() - t0:.1f} s", flush=True)
+        good, r, par_map_launches, par_strip_launches = parallel_phase(cfg_path)
+        rows += r
+        if not good:
+            fail("parallel phase (data-parallel mapping of the flagship on 2 ranks, the "
+                 "tile-sharded render on 2 and 4, equal columns vs the single mapper, K1 on the "
+                 "last strip's table and K3/K4 on rank 1's stream)")
+        print(f"[parallel] done at {time.time() - t0:.1f} s", flush=True)
     if args.tracking_table and not os.path.isfile(args.tracking_table):
         torch.save(recorded, args.tracking_table)
     by_path = {"cli": eval_launches, "scannet": scannet_launches,
                "replica": replica_launches, "real_shape": real_shape_launches,
                "eval_novel_view": nvs_launches, "tum": tum_launches,
-               "classic": classic_launches, "aniso": aniso_launches, "visualize": viz_launches}
+               "classic": classic_launches, "aniso": aniso_launches, "visualize": viz_launches,
+               "parallel_map": par_map_launches, "parallel_strip": par_strip_launches}
     for row in rows:
         row["launches"] = by_path.get(row.pop("path", None), launches)[row.pop("kernel")]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -29,7 +29,15 @@ class Camera(NamedTuple):
     near: float = 0.01
     far: float = 100.0
     scale_modifier: float = 1.0
+    # a strip camera (tile-sharded rendering) rasterizes ``height`` rows of
+    # an image whose projection was built for ``proj_height`` rows
     proj_height: int = 0
+
+
+def strip_camera(camera: Camera, strip_height: int) -> Camera:
+    """A camera that rasterizes only ``strip_height`` rows of the full
+    image; combine with ``pixel_offset_y`` to select which rows."""
+    return camera._replace(height=strip_height, proj_height=camera.height)
 
 
 def opengl_projection(w: int, h: int, fx, fy, cx, cy, near=0.01, far=100.0) -> np.ndarray:

@@ -111,3 +111,8 @@ def transform_to_frame(
     else:
         rots = unnorm_rotations
     return pts, rots
+
+
+def relative_transformation(trans_01: torch.Tensor, trans_02: torch.Tensor) -> torch.Tensor:
+    """Pose of frame 2 relative to frame 1: ``inv(T_01) @ T_02``."""
+    return torch.linalg.inv(trans_01) @ trans_02

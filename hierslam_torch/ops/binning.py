@@ -1,4 +1,5 @@
-"""Tile binning (port of ``hierslam_tpu/ops/binning.py``: ``bin_bucketed``, ``bin_stream``).
+"""Tile binning (port of ``hierslam_tpu/ops/binning.py``: ``bin_gaussians``, ``bin_bucketed``,
+``bin_stream``).
 
 Every Gaussian emits one (tile, depth) pair per tile its screen rect
 covers, with the JAX package's budgeted prefix emission (Gaussians sorted
@@ -25,6 +26,22 @@ import torch
 
 SAT_SCALE = 255
 T_DONE_LOG = -9.210340371976182  # ln(1e-4)
+
+
+class TileLists(NamedTuple):
+    """Fixed-K depth-ordered per-tile lists (:func:`bin_gaussians`)."""
+
+    idx: torch.Tensor        # [T, K] int64 gaussian indices in depth order, -1 pad
+    count: torch.Tensor      # [T] overlap counts (may exceed K)
+    n_dropped: torch.Tensor  # [] pairs lost to the K cap and the emission caps
+
+
+class EscalatedLists(NamedTuple):
+    """Longer lists for the tiles of the highest overlap counts."""
+
+    tile_ids: torch.Tensor   # [OB] tile ids (top counts, lowest id first among ties)
+    idx: torch.Tensor        # [OB, K_big] indices in depth order, -1 pad
+    count: torch.Tensor      # [OB] overlap counts of those tiles
 
 
 class BucketedLists(NamedTuple):
@@ -235,6 +252,55 @@ def _vis_fields(sp: SortedPairs, n: int):
     return sp.order[: sp.v_budget], rank_of
 
 
+def _tile_lists(s_gauss_pad, starts, lim, k: int):
+    """[len(starts), k] lists: the first ``lim`` of each run, -1 after."""
+    kk = torch.arange(k, device=starts.device)
+    take = starts[:, None] + kk[None, :]
+    ok = kk[None, :] < lim[:, None]
+    m = s_gauss_pad.shape[0] - 1
+    return torch.where(ok, s_gauss_pad[take.clamp_max(m)], torch.full_like(take, -1))
+
+
+def bin_gaussians(
+    rect_min: torch.Tensor,
+    rect_max: torch.Tensor,
+    valid: torch.Tensor,
+    depth: torch.Tensor,
+    grid: Tuple[int, int],
+    max_per_tile: int,
+    chunk: int = 16384,
+    max_tiles_per_gaussian: int = 32,
+    emission_budgets: Optional[Sequence[int]] = None,
+    n_escalate: int = 0,
+    escalate_k: int = 0,
+):
+    """Per-tile depth-ordered lists at one capacity K = ``max_per_tile``
+    (``chunk`` shapes the JAX scan only and is ignored).  With
+    ``n_escalate`` and ``escalate_k > K`` the ``n_escalate`` tiles of the
+    highest counts also get lists at ``escalate_k`` slots, and the pairs
+    those recover leave ``n_dropped``.  Returns ``(TileLists,
+    EscalatedLists or None)``."""
+    sp = _emit_sort_sat(rect_min, rect_max, valid, depth, grid, (1, 1),
+                        max_tiles_per_gaussian, emission_budgets, 0.0, 0, None, None, None, 0)
+    dev = depth.device
+    counts = sp.counts
+    s_gauss_pad = torch.cat([sp.s_gauss, torch.full((1,), -1, dtype=torch.int64, device=dev)])
+    k = max_per_tile
+    lists = _tile_lists(s_gauss_pad, sp.starts, counts, k)
+    n_dropped = (counts - k).clamp_min(0).sum() + sp.n_dropped_pre
+    esc = None
+    if n_escalate > 0 and escalate_k > k:
+        ob = min(n_escalate, counts.shape[0])
+        big_ids = torch.sort(-counts, stable=True).indices[:ob]
+        big_counts = counts[big_ids]
+        esc = EscalatedLists(
+            tile_ids=big_ids,
+            idx=_tile_lists(s_gauss_pad, sp.starts[big_ids], big_counts, escalate_k),
+            count=big_counts)
+        n_dropped = n_dropped - (big_counts.clamp_max(escalate_k) - big_counts.clamp_max(k)).sum()
+    return TileLists(idx=lists, count=counts, n_dropped=n_dropped), esc
+
+
 def bin_bucketed(
     rect_min: torch.Tensor,
     rect_max: torch.Tensor,
@@ -263,7 +329,6 @@ def bin_bucketed(
         xy, conic, opacity, visible_budget,
     )
     s_gauss, starts, counts, k_eff = sp.s_gauss, sp.starts, sp.counts, sp.k_eff
-    m = s_gauss.shape[0]
     dev = depth.device
     rank_order = torch.sort(-k_eff, stable=True).indices
     s_gauss_pad = torch.cat([s_gauss, torch.full((1,), -1, dtype=torch.int64, device=dev)])
@@ -275,11 +340,7 @@ def bin_bucketed(
         ids_b = rank_order[off:off + n_b]
         off += n_b
         lim_b = torch.minimum(k_eff[ids_b], torch.tensor(k_b, device=dev))
-        kk = torch.arange(k_b, device=dev)
-        take = starts[ids_b][:, None] + kk[None, :]
-        ok = kk[None, :] < lim_b[:, None]
-        idx_b = torch.where(ok, s_gauss_pad[take.clamp_max(m)],
-                            torch.full_like(take, -1))
+        idx_b = _tile_lists(s_gauss_pad, starts[ids_b], lim_b, k_b)
         ids_out.append(ids_b)
         idx_out.append(idx_b)
         n_refs = n_refs + lim_b.sum()

@@ -71,11 +71,11 @@ def ndc2pix(v: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def preprocess(means3D, scales, rotations, camera, tile_shape, active=None,
-               radius_margin_px: float = 0.0) -> Preprocessed:
+               radius_margin_px: float = 0.0, pixel_offset_y: float = 0.0) -> Preprocessed:
     """Project Gaussians to screen space (stacked ``[N, c]`` form)."""
     return preprocess_cols(
         means3D, scales, rotations, camera, tile_shape, active=active,
-        radius_margin_px=radius_margin_px,
+        radius_margin_px=radius_margin_px, pixel_offset_y=pixel_offset_y,
     ).stacked()
 
 
@@ -87,11 +87,15 @@ def preprocess_cols(
     tile_shape: Tuple[int, int],
     active: Optional[torch.Tensor] = None,
     radius_margin_px: float = 0.0,
+    pixel_offset_y: float = 0.0,
 ) -> PrepCols:
     """Project Gaussians to screen space.
 
     ``scales`` are post-exp: ``[N, 1]`` isotropic (``rotations`` unused) or
-    ``[N, 3]`` anisotropic with unit ``rotations [N, 4]``.
+    ``[N, 3]`` anisotropic with unit ``rotations [N, 4]``.  A strip camera
+    (``core.camera.strip_camera``) with ``pixel_offset_y`` renders image
+    rows ``[pixel_offset_y, pixel_offset_y + camera.height)`` as its rows
+    ``[0, camera.height)``.
     """
     th, tw = tile_shape
     dev = means3D.device
@@ -159,6 +163,8 @@ def preprocess_cols(
     orig_h = camera.proj_height or camera.height
     px = ndc2pix(ph_x * p_w, camera.width)
     py = ndc2pix(ph_y * p_w, orig_h)
+    if pixel_offset_y:
+        py = py - pixel_offset_y
 
     grid_x = (camera.width + tw - 1) // tw
     grid_y = (camera.height + th - 1) // th

@@ -159,15 +159,15 @@ def _bin_from_prep(prep: projection.Preprocessed, grid, config: RasterConfig,
 
 @torch.no_grad()
 def compute_binning(means3D, scales, rotations, camera, config: RasterConfig,
-                    active=None, margin_px: float = 0.0, opacities=None,
-                    compact: bool = False) -> Binning:
+                    active=None, margin_px: float = 0.0, pixel_offset_y: float = 0.0,
+                    opacities=None, compact: bool = False) -> Binning:
     """Tile lists for the given camera-frame means.  ``margin_px`` inflates
-    the rects (amortized binning); ``opacities`` enables the saturation
-    bound; ``compact=True`` applies ``config.visible_budget`` and returns
-    visible-rank lists."""
+    the rects (amortized binning); ``pixel_offset_y`` selects a strip camera's
+    rows; ``opacities`` enables the saturation bound; ``compact=True``
+    applies ``config.visible_budget`` and returns visible-rank lists."""
     prep = projection.preprocess(
         means3D, scales, rotations, camera, config.tile_shape, active=active,
-        radius_margin_px=margin_px,
+        radius_margin_px=margin_px, pixel_offset_y=pixel_offset_y,
     )
     if opacities is not None and opacities.dim() == 2:
         opacities = opacities[:, 0]
@@ -194,6 +194,7 @@ def rasterize(
     semantics: Optional[torch.Tensor] = None,
     active: Optional[torch.Tensor] = None,
     config: RasterConfig = RasterConfig(),
+    pixel_offset_y: float = 0.0,
     binning_cache: Optional[Binning] = None,
     means2D_offset: Optional[torch.Tensor] = None,
     device="cuda",
@@ -203,7 +204,8 @@ def rasterize(
     logits ``[N, S]`` blended like colors) on ``device``, where the inputs
     must lie.  ``means2D_offset`` ([N, 2] zeros) is added to the screen
     means: its gradient is dL/d(screen-space mean) in pixels, what classic
-    densification accumulates."""
+    densification accumulates.  ``pixel_offset_y`` selects the rows of a
+    strip camera (``core.camera.strip_camera``)."""
     dev = resolve_device(device)
     if means3D.device != dev:
         raise ValueError(f"rasterize on {dev}, inputs on {means3D.device}")
@@ -212,6 +214,7 @@ def rasterize(
     opacities, scales = _normalize_inputs(opacities, scales)
     pc = projection.preprocess_cols(
         means3D, scales, rotations, camera, config.tile_shape, active=active,
+        pixel_offset_y=pixel_offset_y,
     )
     if binning_cache is None:
         lists = _bin_from_prep(pc.stacked(), grid, config, opacities.detach())

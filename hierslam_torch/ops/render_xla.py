@@ -11,7 +11,8 @@ the oracle for the closed-form backward in ``ops/render_pallas.py``.
 
 Also here, and called by neither plain blend: the plain version of the
 forwards' per-warp footprint cull and pixel layout (``csrc/cull.cuh``):
-:func:`thread_pixels`, :func:`warp_rects`, :func:`cull_mask`.
+:func:`thread_pixels`, :func:`warp_rects`, :func:`cull_mask`; and
+:func:`rect_recheck_mask`, the current pose's rect test on cached lists.
 """
 from __future__ import annotations
 
@@ -179,3 +180,19 @@ def blend_tiles(g_xy, g_conic, g_opacity, g_depth, g_features, g_valid, *,
     return (tiles_to_image(acc, grid, tile_shape, H, W),
             tiles_to_image(ft, grid, tile_shape, H, W),
             tiles_to_image(med, grid, tile_shape, H, W))
+
+
+def rect_recheck_mask(tile_idx: torch.Tensor, rect_min: torch.Tensor, rect_max: torch.Tensor,
+                      valid: torch.Tensor, grid: Tuple[int, int]) -> torch.Tensor:
+    """``[T, K]`` mask of the slots of cached lists ``tile_idx`` (-1 pad)
+    whose gaussian is valid and whose current tile rect (``[N, 2]``
+    ``rect_min`` inclusive, ``rect_max`` exclusive) covers the slot's tile."""
+    grid_x = grid[1]
+    t_ids = torch.arange(tile_idx.shape[0], device=tile_idx.device)
+    tx = (t_ids % grid_x)[:, None]
+    ty = (t_ids // grid_x)[:, None]
+    safe = tile_idx.clamp_min(0)
+    rmin, rmax = rect_min[safe], rect_max[safe]
+    return ((tile_idx >= 0) & valid[safe]
+            & (tx >= rmin[..., 0]) & (tx < rmax[..., 0])
+            & (ty >= rmin[..., 1]) & (ty < rmax[..., 1]))

@@ -58,3 +58,9 @@ def calc_ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
     )
     return ssim_map.mean()
+
+
+def calc_psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """PSNR of two images in [0, 1], a scalar for ``[C, H, W]``."""
+    mse = torch.mean((img1 - img2) ** 2)
+    return 20 * torch.log10(1.0 / torch.sqrt(mse))

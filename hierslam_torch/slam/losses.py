@@ -109,7 +109,7 @@ def render_packed_stream(table: torch.Tensor, active, binning_cache: rs.StreamBi
 
 def render_gaussians(params: Params, active, cam_quat, cam_trans, camera,
                      raster_cfg: RasterConfig, *, with_semantic: bool,
-                     gaussians_grad: bool, camera_grad: bool,
+                     gaussians_grad: bool, camera_grad: bool, pixel_offset_y: float = 0.0,
                      binning_cache=None, means2D_offset=None) -> RenderOutput:
     """transform_to_frame + activations (sigmoid opacity, exp scale, raw
     semantic logits) + rasterize.  A visible-rank binning cache first
@@ -120,8 +120,12 @@ def render_gaussians(params: Params, active, cam_quat, cam_trans, camera,
 
     ``means2D_offset`` ([N, 2] zeros) is the classic-densification hook:
     its gradient is dL/d(screen-space mean).  It needs full-N screen
-    means, so neither the stream nor a visible-rank cache takes it."""
+    means, so neither the stream nor a visible-rank cache takes it.
+    ``pixel_offset_y`` selects the rows of a strip camera (tile-sharded
+    rendering, ladder only)."""
     if isinstance(binning_cache, rs.StreamBinning):
+        if pixel_offset_y:
+            raise NotImplementedError("the stream backend renders whole images only")
         if params["log_scales"].shape[1] != 1:
             raise NotImplementedError("stream backend supports isotropic maps only")
         if means2D_offset is not None:
@@ -158,8 +162,8 @@ def render_gaussians(params: Params, active, cam_quat, cam_trans, camera,
     return rasterize(
         means_cam, gp["rgb_colors"], torch.sigmoid(gp["logit_opacities"][:, 0]),
         torch.exp(gp["log_scales"]), transforms.normalize(rots), camera,
-        semantics=sem, active=active, config=raster_cfg, binning_cache=binning_cache,
-        means2D_offset=means2D_offset, device=means_cam.device,
+        semantics=sem, active=active, config=raster_cfg, pixel_offset_y=pixel_offset_y,
+        binning_cache=binning_cache, means2D_offset=means2D_offset, device=means_cam.device,
     )
 
 

@@ -100,7 +100,7 @@ def make_densifier(camera, raster_cfg: RasterConfig, sil_thres: float,
 def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
                 lrs: Dict[str, float], num_iters: int, prune_cfg: PruneConfig,
                 mlp_lr: float = 5e-4, bin_margin_px: float = 4.0,
-                densify_cfg: Optional[DensifyConfig] = None, device="cuda"):
+                densify_cfg: Optional[DensifyConfig] = None, device="cuda", combine=None):
     """Returns ``map_phase(params, variables, window, rand_idx, mlp,
     mlp_state, generator=None, noise=None) -> (params, variables, mlp,
     mlp_state, losses)``.
@@ -110,7 +110,13 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
     ``losses`` holds one [num_iters] device tensor per loss term.  With
     ``densify_cfg`` the split children's draws come from ``generator``, or
     from ``noise``: one sequence of ``num_to_split_into`` ``[N, 3]``
-    tensors per densify event."""
+    tensors per densify event.
+
+    ``combine(grads, mlp_grads, parts, radii) -> (grads, mlp_grads, parts,
+    radii)`` is the data-parallel mapper's hook (``parallel/shard.py``):
+    it runs after each backward, before prune and step, and averages the
+    ranks' gradients and loss parts and takes the max of their ``radii``
+    (None where no radius bookkeeping follows)."""
     dev = resolve_device(device)
     with_sem = bool(loss_cfg.sem_levels)
     packed = raster_cfg.backend == "stream"
@@ -210,6 +216,12 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
                     if wants_mlp else None)
             if use_classic:   # after the backward, before prune and step
                 variables = accumulate_mean2d_gradient(variables, grads[-1], out.radii > 0)
+            parts = {n: v.detach() for n, v in parts.items()}
+            parts["n_grad_dropped"] = out.n_grad_dropped.float()
+            parts["n_map_bin_dropped"] = out.n_dropped.float()
+            radii = None if compacted or packed else out.radii
+            if combine is not None:
+                ggp, gmlp, parts, radii = combine(ggp, gmlp, parts, radii)
 
             # prune (reference order: backward -> prune -> step)
             if (prune_cfg.start_after <= it <= prune_cfg.stop_after
@@ -252,14 +264,10 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
             if wants_mlp:
                 mlp, mlp_state = optim.adam_step(mlp, gmlp, mlp_state,
                                                  {"w": mlp_lr, "b": mlp_lr}, eps=1e-8)
-            if not compacted and not packed:
+            if radii is not None:
                 variables["max_2D_radius"] = torch.where(
-                    out.radii > 0,
-                    torch.maximum(variables["max_2D_radius"], out.radii.float()),
+                    radii > 0, torch.maximum(variables["max_2D_radius"], radii.float()),
                     variables["max_2D_radius"])
-            parts = {n: v.detach() for n, v in parts.items()}
-            parts["n_grad_dropped"] = out.n_grad_dropped.float()
-            parts["n_map_bin_dropped"] = out.n_dropped.float()
             for n, v in parts.items():
                 traces.setdefault(n, []).append(v)
 

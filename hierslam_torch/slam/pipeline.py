@@ -16,7 +16,8 @@ loaders of ``hierslam_torch.datasets``), or from a ``dataset=`` object:
 4x4, labels [L+1,H,W])``, plus ``num_semantic`` / ``num_semantic_class``.
 ``run()`` steps every frame from ``start_idx`` (after a resume from a
 checkpoint) with a loader thread ahead of it; ``run_slam`` adds the final
-eval.
+eval.  With ``parallel.map_data_devices = D > 1`` the mapping phases run
+keyframe data-parallel over a mesh of D ranks (``parallel/shard.py``).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from hierslam_torch.datasets import get_dataset
 from hierslam_torch.datasets.base import load_dataset_config
 from hierslam_torch.eval.progress import plotting_available, report_progress
 from hierslam_torch.eval.runner import _build_renderer, run_final_eval
+from hierslam_torch.parallel import make_dp_mapper, make_mesh
 from hierslam_torch.slam import optim
 from hierslam_torch.slam.densify_classic import DensifyConfig
 from hierslam_torch.slam.keyframes import Keyframe, KeyframeStore, keyframe_selection_overlap
@@ -50,7 +52,7 @@ from hierslam_torch.utils.prefetch import Prefetcher
 
 
 class SLAMRunner:
-    def __init__(self, config: Dict, dataset=None, device="cuda"):
+    def __init__(self, config: Dict, dataset=None, device="cuda", mesh=None):
         self.device = dev = resolve_device(device)
         self.config = config = apply_defaults(config)
         if config.get("use_wandb", False):
@@ -160,13 +162,37 @@ class SLAMRunner:
             dd = mcfg.get("densify_dict", {})
             densify_cfg = DensifyConfig(**{k: dd[k] for k in DensifyConfig.__dataclass_fields__
                                            if k in dd})
-        if int(config.get("parallel", {}).get("map_data_devices", 0)) > 1:
-            raise NotImplementedError("multi-device mapping is not ported yet (ROADMAP.md)")
-        self.mapper = make_mapper(
-            self.camera, map_loss, rc, map_lrs, num_iters=mcfg["num_iters"],
-            prune_cfg=prune or PruneConfig(start_after=10**9), densify_cfg=densify_cfg,
-            device=dev,
-        )
+        # parallel.map_data_devices = D > 1: the mapping phase runs keyframe
+        # data-parallel over a mesh of D ranks (parallel/shard.py), D window
+        # frames an iteration; ``mesh`` places the ranks, else rank r runs
+        # on cuda:r.  run() closes the mesh.
+        self.map_dp = int(config.get("parallel", {}).get("map_data_devices", 0))
+        self.mesh = None
+        if self.map_dp > 1:
+            if densify_cfg is not None:
+                raise ValueError("parallel.map_data_devices does not support "
+                                 "use_gaussian_splatting_densification")
+            if mesh is None:
+                n_dev = torch.cuda.device_count() if torch.cuda.is_available() else 0
+                if n_dev < self.map_dp:
+                    raise ValueError(f"parallel.map_data_devices={self.map_dp} but only "
+                                     f"{n_dev} devices are visible")
+                mesh = make_mesh(self.map_dp)
+            if mesh.size != self.map_dp or mesh.device != dev:
+                raise ValueError(f"a mesh of {mesh.size} ranks with rank 0 on {mesh.device} "
+                                 f"for parallel.map_data_devices={self.map_dp} on {dev}")
+            self.mesh = mesh
+            self.mapper = make_dp_mapper(
+                mesh, self.camera, map_loss, rc, map_lrs, num_iters=mcfg["num_iters"],
+                prune_cfg=prune or PruneConfig(start_after=10**9))
+        elif mesh is not None:
+            raise ValueError("a mesh is given but parallel.map_data_devices is not above 1")
+        else:
+            self.mapper = make_mapper(
+                self.camera, map_loss, rc, map_lrs, num_iters=mcfg["num_iters"],
+                prune_cfg=prune or PruneConfig(start_after=10**9), densify_cfg=densify_cfg,
+                device=dev,
+            )
         self.densifier = make_densifier(self.camera, rc, mcfg["sil_thres"],
                                         self.num_semantic, device=dev)
 
@@ -197,6 +223,7 @@ class SLAMRunner:
             densify_added=0, densify_overflow=0,
             bin_overflow_last=0, bin_overflow_max=0,
             compactions=0, slots_reclaimed=0, emergency_pruned=0, progress_failed=0,
+            map_broadcast_bytes=0, map_broadcast_s=0.0, map_collective_s=0.0,
         )
         self.overflow_warn_threshold = int(
             config.get("raster", {}).get("overflow_warn_threshold", 100_000))
@@ -447,7 +474,9 @@ class SLAMRunner:
             # the JAX mapper pads the window to a static size; rand_idx never
             # reads the padding, so the port binds only the real frames
             window = self._window_arrays(window_frames)
-            rand_idx = self.rng.integers(0, len(window_frames), cfg["mapping"]["num_iters"])
+            n_it = cfg["mapping"]["num_iters"]
+            rand_idx = self.rng.integers(0, len(window_frames),
+                                         (n_it, self.map_dp) if self.mesh is not None else n_it)
             p_b, v_b = self._sliced_state()
             p_b, v_b, self.mlp, self.mlp_state, losses = self.mapper(
                 p_b, v_b, window, rand_idx, self.mlp, self.mlp_state, self.generator)
@@ -481,6 +510,9 @@ class SLAMRunner:
             final_loss = float(losses["loss"][-1])
             self.logger.log(t, mapping_loss=final_loss, n_active=int(self.variables["n_active"]))
             dm = time.time() - m0
+            if self.mesh is not None:   # inside dm: the phase cannot run without them
+                for k in ("broadcast_bytes", "broadcast_s", "collective_s"):
+                    self.stats[f"map_{k}"] += self.mesh.stats[k]
             self.stats["mapping_iter_time_sum"] += dm
             self.stats["mapping_iter_time_count"] += cfg["mapping"]["num_iters"]
             self.stats["mapping_frame_time_sum"] += dm
@@ -531,15 +563,19 @@ class SLAMRunner:
         that raises leaves an emergency checkpoint."""
         frames = Prefetcher(self._load_frame, self.start_idx, self.num_frames, depth=2)
         t_run = time.time()
-        for t, frame in frames:
-            try:
-                self.step(t, frame)
-            except Exception:
-                self.emergency_checkpoint(t)
-                raise
-            if progress:
-                print(f"hierslam-torch: frame {t + 1}/{self.num_frames} "
-                      f"({time.time() - t_run:.1f} s)", flush=True)
+        try:
+            for t, frame in frames:
+                try:
+                    self.step(t, frame)
+                except Exception:
+                    self.emergency_checkpoint(t)
+                    raise
+                if progress:
+                    print(f"hierslam-torch: frame {t + 1}/{self.num_frames} "
+                          f"({time.time() - t_run:.1f} s)", flush=True)
+        finally:
+            if self.mesh is not None:
+                self.mesh.close()
         pn = self.finalize()          # closes the metrics log
         if self.plots:
             try:
@@ -598,6 +634,9 @@ class SLAMRunner:
             "slots_reclaimed": s["slots_reclaimed"],
             "emergency_pruned": s["emergency_pruned"],
             "progress_failed": s["progress_failed"],
+            "map_broadcast_bytes": s["map_broadcast_bytes"],
+            "map_broadcast_s": s["map_broadcast_s"],
+            "map_collective_s": s["map_collective_s"],
             "n_active": int(self.variables["active"].sum()),
         }
 
