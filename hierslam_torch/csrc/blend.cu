@@ -3,13 +3,20 @@
 // K1 replaces hierslam_tpu/ops/render_pallas.py::_fwd_kernel (launched by
 // _run_fwd), K2 replaces ::_bwd_kernel (_run_bwd, the VJP of
 // blend_tiles_pallas).  Plain C interface, loaded with ctypes by
-// hierslam_torch/ops/kernels.py; the wrappers there allocate every output,
+// hierslam_torch/ops/kernels.py; the wrappers there allocate the outputs or
+// take the buffers a caller shares over the capacity classes of a render,
 // pass PyTorch's current stream and check the launch error this returns.
 //
 // Table layout per tile: [K, C] float32 with C = 7 + F columns
 // (x, y, conic a, b, c, opacity, depth, F features), slots in depth order,
-// plus a [K] uint8 slot mask.  Pixel p of tile t sits at
-// x = (t % grid_x) * tw + p % tw, y = (t / grid_x) * th + p / tw.
+// plus a [K] uint8 slot mask.  Block b blends row b of the table as tile
+// t = tile_ids[b] of the image's grid (t = b where tile_ids is null): pixel p
+// of tile t sits at x = (t % grid_x) * tw + p % tw, y = (t / grid_x) * th +
+// p / tw, at true screen coordinates.  The per-pixel outputs and residuals
+// are rows t of [T_all, P, .] buffers, so the capacity classes of one render,
+// which partition the tiles, each launch into the same buffers and leave the
+// whole image in tile order.  K2 reads the residuals and cotangents at row t
+// and writes row b of d table.
 //
 // K1 design: one block per tile, one thread per pixel, a warp an 8 x 4
 // block of pixels (cull.cuh).  What bounds it is the work per (warp, slot): a
@@ -82,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "fwd.cuh"
 #include "reduce.cuh"
 
@@ -138,12 +147,14 @@ static int fwd_smem(int C, int nb) {
 
 template <int MAXF>
 __global__ void __launch_bounds__(hsl::FWD_THREADS, hsl::fwd_min_blocks(MAXF))
-blend_fwd_kernel(const float* __restrict__ table, const uint8_t* __restrict__ ok, int K, int C,
-                 int F, int grid_x, int th, int tw, int spw, float* __restrict__ acc,
-                 float* __restrict__ ft, float* __restrict__ med, int* __restrict__ last,
-                 int* __restrict__ mslot) {
+blend_fwd_kernel(const float* __restrict__ table, const uint8_t* __restrict__ ok,
+                 const int* __restrict__ tile_ids, int n_rows, int K, int C, int F, int grid_x,
+                 int th, int tw, int spw, float* __restrict__ acc, float* __restrict__ ft,
+                 float* __restrict__ med, int* __restrict__ last, int* __restrict__ mslot) {
   extern __shared__ float4 smem4[];
-  const int tile = blockIdx.x;
+  const int row = blockIdx.x;                              // the table's row
+  const int tile = tile_ids ? tile_ids[row] : row;         // the image's tile
+  if (tile < 0 || tile >= n_rows) return;                  // no row of the outputs
   const int P = blockDim.x;
   const int p = threadIdx.x;
   const int lane = p & 31;
@@ -160,8 +171,8 @@ blend_fwd_kernel(const float* __restrict__ table, const uint8_t* __restrict__ ok
   const float tile_y0 = (float)((tile / grid_x) * th);
   const float px = tile_x0 + (float)lx;
   const float py = tile_y0 + (float)ly;
-  const float* tab_t = table + (size_t)tile * K * C;
-  const uint8_t* ok_t = ok + (size_t)tile * K;
+  const float* tab_t = table + (size_t)row * K * C;
+  const uint8_t* ok_t = ok + (size_t)row * K;
   float* raw_w = s_raw + warp * spw * C;           // this warp's piece
 
   // records past nb, which only the ballot reads, hold mask 0
@@ -202,10 +213,10 @@ blend_fwd_kernel(const float* __restrict__ table, const uint8_t* __restrict__ ok
 template <int MAXF>
 __global__ void __launch_bounds__(BWD_THREADS, k2_min_blocks(MAXF)) blend_bwd_kernel(
     const float* __restrict__ table, const uint8_t* __restrict__ ok,
-    const float* __restrict__ ft, const int* __restrict__ last,
-    const int* __restrict__ mslot, const float* __restrict__ gacc, const float* __restrict__ gft,
-    const float* __restrict__ gmed, int K, int C, int F, int grid_x, int th,
-    int tw, int sb, float* __restrict__ dtab) {
+    const int* __restrict__ tile_ids, int n_rows, const float* __restrict__ ft,
+    const int* __restrict__ last, const int* __restrict__ mslot, const float* __restrict__ gacc,
+    const float* __restrict__ gft, const float* __restrict__ gmed, int K, int C, int F, int grid_x, int th, int tw, int sb,
+    float* __restrict__ dtab) {
   constexpr int V = 7 + MAXF;               // terms summed per slot (bucket)
   // wide rows read their features 1.. as float4 (a shared load each); at
   // F <= 3 the scalar loads are cheaper
@@ -219,15 +230,20 @@ __global__ void __launch_bounds__(BWD_THREADS, k2_min_blocks(MAXF)) blend_bwd_ke
   float* s_red = s_tab + sb * CP;           // [nwarps][sb][C]
   __shared__ int s_maxlast;
 
-  const int tile = blockIdx.x;
+  const int row = blockIdx.x;                              // the table's row
+  const int tile = tile_ids ? tile_ids[row] : row;         // the image's tile
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
+  float* dtab_t = dtab + (size_t)row * K * C;
+  if (tile < 0 || tile >= n_rows) {                        // no residuals: a zero gradient
+    for (int i = p; i < K * C; i += P) dtab_t[i] = 0.f;
+    return;
+  }
   const float px = (float)((tile % grid_x) * tw + p % tw);
   const float py = (float)((tile / grid_x) * th + p / tw);
-  const float* tab_t = table + (size_t)tile * K * C;
-  const uint8_t* ok_t = ok + (size_t)tile * K;
-  float* dtab_t = dtab + (size_t)tile * K * C;
+  const float* tab_t = table + (size_t)row * K * C;
+  const uint8_t* ok_t = ok + (size_t)row * K;
   const size_t pix = (size_t)tile * P + p;
 
   float ga[MAXF];
@@ -357,19 +373,39 @@ static int fwd_batch(int C, int P, int* spw_out) {
   return smem > budget ? -1 : smem;
 }
 
+// The arguments of a launch, as the C entry points take them.
+struct Launch {
+  const float* table;
+  const uint8_t* ok;
+  const int* tile_ids;
+  int n_rows, T, K, C, grid_x, th, tw;
+  cudaStream_t stream;
+};
+
+// Calls fn(std::integral_constant<int, MAXF>) for F's feature bucket
+// (fwd.cuh); an error above the widest.
+template <class Fn>
+static int by_bucket(int F, Fn fn) {
+  if (F <= 3) return (int)fn(std::integral_constant<int, 3>{});
+  if (F <= 29) return (int)fn(std::integral_constant<int, 29>{});
+  if (F <= 32) return (int)fn(std::integral_constant<int, 32>{});
+  if (F <= hsl::MAX_FEATURES) return (int)fn(std::integral_constant<int, hsl::MAX_FEATURES>{});
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int MAXF>
-static cudaError_t launch_fwd(const float* table, const uint8_t* ok, int T, int K, int C,
-                              int grid_x, int th, int tw, float* acc, float* ft, float* med,
-                              int* last, int* mslot, cudaStream_t stream) {
-  const int P = th * tw;
+static cudaError_t launch_fwd(const Launch& a, float* acc, float* ft, float* med, int* last,
+                              int* mslot) {
+  const int P = a.th * a.tw;
   int spw = 0;
-  const int smem = fwd_batch(C, P, &spw);
+  const int smem = fwd_batch(a.C, P, &spw);
   if (smem < 0) return cudaErrorInvalidValue;
   static int granted[hsl::MAX_DEVICES] = {};
   const cudaError_t e = hsl::grant_smem(blend_fwd_kernel<MAXF>, smem, granted);
   if (e != cudaSuccess) return e;
-  blend_fwd_kernel<MAXF><<<T, P, smem, stream>>>(table, ok, K, C, C - 7, grid_x, th, tw, spw,
-                                                 acc, ft, med, last, mslot);
+  blend_fwd_kernel<MAXF><<<a.T, P, smem, a.stream>>>(a.table, a.ok, a.tile_ids, a.n_rows, a.K,
+                                                     a.C, a.C - 7, a.grid_x, a.th, a.tw, spw, acc,
+                                                     ft, med, last, mslot);
   return cudaGetLastError();
 }
 
@@ -380,14 +416,13 @@ static int bwd_smem(int C, int P, int sb) {
 }
 
 template <int MAXF>
-static cudaError_t launch_bwd(const float* table, const uint8_t* ok, const float* ft,
-                              const int* last, const int* mslot, const float* gacc,
-                              const float* gft, const float* gmed, int T, int K, int C,
-                              int grid_x, int th, int tw, int sb, float* dtab,
-                              cudaStream_t stream) {
-  const int P = th * tw;
-  blend_bwd_kernel<MAXF><<<T, P, bwd_smem(C, P, sb), stream>>>(
-      table, ok, ft, last, mslot, gacc, gft, gmed, K, C, C - 7, grid_x, th, tw, sb, dtab);
+static cudaError_t launch_bwd(const Launch& a, const float* ft, const int* last, const int* mslot,
+                              const float* gacc, const float* gft, const float* gmed, int sb,
+                              float* dtab) {
+  const int P = a.th * a.tw;
+  blend_bwd_kernel<MAXF><<<a.T, P, bwd_smem(a.C, P, sb), a.stream>>>(
+      a.table, a.ok, a.tile_ids, a.n_rows, ft, last, mslot, gacc, gft, gmed, a.K, a.C, a.C - 7,
+      a.grid_x, a.th, a.tw, sb, dtab);
   return cudaGetLastError();
 }
 
@@ -407,46 +442,32 @@ int blend_fwd_smem(int C, int P) {
 // Shared memory (bytes) of one K2 block for C columns, P pixels, batch sb.
 int blend_bwd_smem(int C, int P, int sb) { return bwd_smem(C, P, sb); }
 
-int blend_fwd(const float* table, const uint8_t* ok, int T, int K, int C, int grid_x, int th,
-              int tw, float* acc, float* ft, float* med, int* last, int* mslot, void* stream) {
-  const int F = C - 7;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+// tile_ids: null (row b is tile b), or T int32 tile ids of the grid (see
+// the top of the file); n_rows: the rows of the outputs (K1) and of the
+// residuals and cotangents (K2).  A tile id outside [0, n_rows) writes no
+// output and gets a zero gradient.
+int blend_fwd(const float* table, const uint8_t* ok, const int* tile_ids, int n_rows, int T,
+              int K, int C, int grid_x, int th, int tw, float* acc, float* ft, float* med,
+              int* last, int* mslot, void* stream) {
   if (th * tw > hsl::FWD_THREADS || !hsl::block_layout(tw, th))
     return (int)cudaErrorInvalidValue;
-  // feature buckets (fwd.cuh)
-  if (F <= 3)
-    return launch_fwd<3>(table, ok, T, K, C, grid_x, th, tw, acc, ft, med, last, mslot, s);
-  if (F <= 29)
-    return launch_fwd<29>(table, ok, T, K, C, grid_x, th, tw, acc, ft, med, last, mslot, s);
-  if (F <= 32)
-    return launch_fwd<32>(table, ok, T, K, C, grid_x, th, tw, acc, ft, med, last, mslot, s);
-  if (F <= hsl::MAX_FEATURES)
-    return launch_fwd<hsl::MAX_FEATURES>(table, ok, T, K, C, grid_x, th, tw, acc, ft, med, last,
-                                         mslot, s);
-  return (int)cudaErrorInvalidValue;
+  const Launch a{table, ok, tile_ids, n_rows, T, K, C, grid_x, th, tw,
+                 reinterpret_cast<cudaStream_t>(stream)};
+  return by_bucket(C - 7, [&](auto b) {
+    return launch_fwd<decltype(b)::value>(a, acc, ft, med, last, mslot);
+  });
 }
 
-int blend_bwd(const float* table, const uint8_t* ok, const float* ft, const int* last,
-              const int* mslot, const float* gacc, const float* gft, const float* gmed,
-              int T, int K, int C, int grid_x, int th, int tw, int sb, float* dtab,
-              void* stream) {
-  const int F = C - 7;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+int blend_bwd(const float* table, const uint8_t* ok, const int* tile_ids, int n_rows,
+              const float* ft, const int* last, const int* mslot, const float* gacc,
+              const float* gft, const float* gmed, int T, int K, int C, int grid_x, int th, int tw,
+              int sb, float* dtab, void* stream) {
   if (th * tw > BWD_THREADS) return (int)cudaErrorInvalidValue;
-  // feature buckets (fwd.cuh)
-  if (F <= 3)
-    return launch_bwd<3>(table, ok, ft, last, mslot, gacc, gft, gmed, T, K, C, grid_x, th, tw,
-                         sb, dtab, s);
-  if (F <= 29)
-    return launch_bwd<29>(table, ok, ft, last, mslot, gacc, gft, gmed, T, K, C, grid_x, th,
-                          tw, sb, dtab, s);
-  if (F <= 32)
-    return launch_bwd<32>(table, ok, ft, last, mslot, gacc, gft, gmed, T, K, C, grid_x, th,
-                          tw, sb, dtab, s);
-  if (F <= hsl::MAX_FEATURES)
-    return launch_bwd<hsl::MAX_FEATURES>(table, ok, ft, last, mslot, gacc, gft, gmed, T, K, C,
-                                         grid_x, th, tw, sb, dtab, s);
-  return (int)cudaErrorInvalidValue;
+  const Launch a{table, ok, tile_ids, n_rows, T, K, C, grid_x, th, tw,
+                 reinterpret_cast<cudaStream_t>(stream)};
+  return by_bucket(C - 7, [&](auto b) {
+    return launch_bwd<decltype(b)::value>(a, ft, last, mslot, gacc, gft, gmed, sb, dtab);
+  });
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ after mapping:
 * masked PSNR + depth L1 of the render vs GT;
 * trajectory ATE RMSE over all frames so far (finite GT poses only);
 * where matplotlib is installed, a 2x3 qualitative panel (GT RGB / GT depth
-  / silhouette, rendered RGB / rendered depth / depth-diff L1) as PNG.
+  / silhouette, rendered RGB / rendered depth / depth-diff L1) as PNG, and
+  to wandb when a run is active.
 """
 from __future__ import annotations
 
@@ -43,8 +44,12 @@ def plot_rgbd_silhouette(
     plot_dir: Optional[str] = None,
     plot_name: Optional[str] = None,
     save_plot: bool = False,
+    wandb_run=None,
+    wandb_title: Optional[str] = None,
+    wandb_step: Optional[int] = None,
 ):
-    """2x3 qualitative panel; needs matplotlib."""
+    """2x3 qualitative panel; needs matplotlib.  ``wandb_run`` (a wandb
+    run) also gets the figure, under ``wandb_title`` at ``wandb_step``."""
     import matplotlib
 
     matplotlib.use("Agg")
@@ -73,6 +78,8 @@ def plot_rgbd_silhouette(
         os.makedirs(plot_dir, exist_ok=True)
         out_path = os.path.join(plot_dir, f"{plot_name}.png")
         fig.savefig(out_path, bbox_inches="tight")
+    if wandb_run is not None:
+        wandb_run.log({wandb_title or fig_title: fig}, step=wandb_step)
     plt.close(fig)
     return out_path
 
@@ -104,10 +111,11 @@ def report_progress(
     plot_dir: str,
     phase: str = "tracking",
     save_plot: bool = True,
+    wandb_run=None,
     logger=None,
 ) -> Dict[str, float]:
     """Render the current frame, score it, log the scalars and, with
-    ``save_plot``, write the panel."""
+    ``save_plot``, write the panel (and send it to ``wandb_run``)."""
     out = render_fn(params, time_idx)
     sil = out.final_opacity
     presence = sil > sil_thres
@@ -129,7 +137,8 @@ def report_progress(
         plot_rgbd_silhouette(
             im_gt.cpu().numpy(), gd, out.im.cpu().numpy(), rd, presence.cpu().numpy(),
             diff_depth, psnr, depth_l1, title, plot_dir=plot_dir,
-            plot_name=f"{phase}_{time_idx:04d}", save_plot=True,
+            plot_name=f"{phase}_{time_idx:04d}", save_plot=True, wandb_run=wandb_run,
+            wandb_title=f"{phase.capitalize()}/Qual Viz", wandb_step=time_idx,
         )
     results = {
         f"{phase}_progress_psnr": psnr,

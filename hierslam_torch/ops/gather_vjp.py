@@ -10,8 +10,6 @@ the cotangent to bfloat16 before the float32 sum.
 """
 from __future__ import annotations
 
-from typing import Sequence
-
 import torch
 
 
@@ -56,7 +54,3 @@ def compact_rows(arr: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
     is the index_select VJP)."""
     return arr.index_select(0, vis)
 
-
-def pack_cols_table(cols: Sequence[torch.Tensor]) -> torch.Tensor:
-    """1-D ``[N]`` columns -> an ``[N, len(cols)]`` float32 table."""
-    return torch.stack([c.float() for c in cols], dim=1)

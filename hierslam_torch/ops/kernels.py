@@ -10,12 +10,12 @@ kept beside each library (:func:`ptxas_report`).  Nothing here runs at
 import time.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs, launches on PyTorch's current stream, raises on a launch error,
-and adds one to its entry of :data:`launch_counts`.  The kernels take 0 to
-128 features (``csrc/fwd.cuh`` MAX_FEATURES); a wrapper raises above that,
-and a launch whose block would need more shared memory than its budget
-or the card's grant returns an error before it starts, on which the
-wrapper raises.
+outputs (K1 also writes into buffers its caller passes), launches on
+PyTorch's current stream, raises on a launch error, and adds one to its
+entry of :data:`launch_counts`.  The kernels take 0 to 128 features
+(``csrc/fwd.cuh`` MAX_FEATURES); a wrapper raises above that, and a launch
+whose block would need more shared memory than its budget or the card's
+grant returns an error before it starts, on which the wrapper raises.
 """
 from __future__ import annotations
 
@@ -131,9 +131,10 @@ def _load(source: str) -> ctypes.CDLL:
     if source not in _libs:
         lib = ctypes.CDLL(build()[source])
         if source == "blend.cu":
-            lib.blend_fwd.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
-            lib.blend_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                      _I, _P, _P]
+            lib.blend_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                      _P, _P]
+            lib.blend_bwd.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _P, _P]
             lib.blend_max_features.argtypes = []
             lib.blend_fwd_smem.argtypes = [_I, _I]
             lib.blend_bwd_smem.argtypes = [_I, _I, _I]
@@ -186,55 +187,85 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def blend_fwd(table: torch.Tensor, ok: torch.Tensor, grid_x: int, tile_shape):
-    """K1.  table [T, K, 7+F] f32, ok [T, K] bool -> (acc [T, P, F+2],
-    final_T [T, P], median [T, P], last committed slot [T, P] int32,
-    median slot [T, P] int32, -1 where T never crosses 0.5)."""
+def _tile_ids_arg(tile_ids: Optional[torch.Tensor], T: int, dev) -> int:
+    """The pointer the kernels take for ``tile_ids`` (0: row b is tile b)."""
+    if tile_ids is None:
+        return 0
+    _check("tile_ids", tile_ids, torch.int32, (T,), dev)
+    return tile_ids.data_ptr()
+
+
+def blend_fwd(table: torch.Tensor, ok: torch.Tensor, grid_x: int, tile_shape,
+              tile_ids: Optional[torch.Tensor] = None, out=None, n_tiles: Optional[int] = None):
+    """K1.  table [T, K, 7+F] f32, ok [T, K] bool -> (acc [T_all, P, F+2],
+    final_T [T_all, P], median [T_all, P], last committed slot [T_all, P]
+    int32, median slot [T_all, P] int32, -1 where T never crosses 0.5).
+
+    Row b of the table is tile ``tile_ids[b]`` ([T] int32; tile b where
+    None) of a grid ``grid_x`` tiles wide, blended at its true pixels, and
+    its outputs are row ``tile_ids[b]`` of ``out`` (the five buffers above,
+    shared by the capacity classes of one render), or of new buffers of
+    ``n_tiles`` rows (default T).  Rows no tile id names are left as they
+    were; a tile id outside the rows writes nothing (the kernel checks)."""
     T, K, C, th, tw, P = _tile_args(table, tile_shape)
     dev = table.device
     _check("table", table, torch.float32, (T, K, C), dev)
     _check("ok", ok, torch.bool, (T, K), dev)
+    ids = _tile_ids_arg(tile_ids, T, dev)
     F = C - 7
-    acc = torch.empty((T, P, F + 2), dtype=torch.float32, device=dev)
-    ft = torch.empty((T, P), dtype=torch.float32, device=dev)
-    med = torch.empty((T, P), dtype=torch.float32, device=dev)
-    last = torch.empty((T, P), dtype=torch.int32, device=dev)
-    mslot = torch.empty((T, P), dtype=torch.int32, device=dev)
+    if out is None:
+        rows = T if n_tiles is None else n_tiles
+        out = (torch.empty((rows, P, F + 2), dtype=torch.float32, device=dev),
+               *(torch.empty((rows, P), dtype=dt, device=dev)
+                 for dt in (torch.float32, torch.float32, torch.int32, torch.int32)))
+    acc, ft, med, last, mslot = out
+    rows = acc.shape[0]
+    if tile_ids is None and rows < T:
+        raise ValueError(f"{T} tiles into buffers of {rows} rows")
+    _check("acc", acc, torch.float32, (rows, P, F + 2), dev)
+    for name, x, dt in (("ft", ft, torch.float32), ("med", med, torch.float32),
+                        ("last", last, torch.int32), ("mslot", mslot, torch.int32)):
+        _check(name, x, dt, (rows, P), dev)
     if T == 0:
-        return acc, ft, med, last, mslot
+        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _load("blend.cu").blend_fwd(
-        table.data_ptr(), ok.data_ptr(), T, K, C, grid_x, th, tw,
+        table.data_ptr(), ok.data_ptr(), ids, rows, T, K, C, grid_x, th, tw,
         acc.data_ptr(), ft.data_ptr(), med.data_ptr(), last.data_ptr(), mslot.data_ptr(),
         stream,
     )
     _raise_on(err, "blend_fwd")
     launch_counts["blend_fwd"] += 1
-    return acc, ft, med, last, mslot
+    return out
 
 
-def blend_bwd(table, ok, ft, last, mslot, gacc, gft, gmed, grid_x: int, tile_shape):
-    """K2.  Residuals (final_T, last, mslot) from :func:`blend_fwd`, cotangents
-    gacc [T, P, F+2], gft / gmed [T, P] -> d table [T, K, 7+F]."""
+def blend_bwd(table, ok, ft, last, mslot, gacc, gft, gmed, grid_x: int, tile_shape,
+              tile_ids: Optional[torch.Tensor] = None):
+    """K2.  Residuals (final_T, last, mslot) from :func:`blend_fwd` and
+    cotangents gacc [T_all, P, F+2], gft / gmed [T_all, P], read at row
+    ``tile_ids[b]`` (b where None) for row b of the table -> d table
+    [T, K, 7+F], 0 on a row whose tile id lies outside those rows."""
     T, K, C, th, tw, P = _tile_args(table, tile_shape)
     dev = table.device
     F = C - 7
     _check("table", table, torch.float32, (T, K, C), dev)
     _check("ok", ok, torch.bool, (T, K), dev)
-    _check("ft", ft, torch.float32, (T, P), dev)
-    _check("last", last, torch.int32, (T, P), dev)
-    _check("mslot", mslot, torch.int32, (T, P), dev)
-    _check("gacc", gacc, torch.float32, (T, P, F + 2), dev)
-    _check("gft", gft, torch.float32, (T, P), dev)
-    _check("gmed", gmed, torch.float32, (T, P), dev)
+    ids = _tile_ids_arg(tile_ids, T, dev)
+    rows = ft.shape[0] if tile_ids is not None else T
+    _check("ft", ft, torch.float32, (rows, P), dev)
+    _check("last", last, torch.int32, (rows, P), dev)
+    _check("mslot", mslot, torch.int32, (rows, P), dev)
+    _check("gacc", gacc, torch.float32, (rows, P, F + 2), dev)
+    _check("gft", gft, torch.float32, (rows, P), dev)
+    _check("gmed", gmed, torch.float32, (rows, P), dev)
     dtab = torch.empty((T, K, C), dtype=torch.float32, device=dev)
     if T == 0:
         return dtab
     sb, _ = bwd_batch("blend.cu", C, P)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _load("blend.cu").blend_bwd(
-        table.data_ptr(), ok.data_ptr(), ft.data_ptr(), last.data_ptr(), mslot.data_ptr(),
-        gacc.data_ptr(), gft.data_ptr(), gmed.data_ptr(), T, K, C, grid_x, th,
+        table.data_ptr(), ok.data_ptr(), ids, rows, ft.data_ptr(), last.data_ptr(),
+        mslot.data_ptr(), gacc.data_ptr(), gft.data_ptr(), gmed.data_ptr(), T, K, C, grid_x, th,
         tw, sb, dtab.data_ptr(), stream,
     )
     _raise_on(err, "blend_bwd")

@@ -1,10 +1,10 @@
 """Public differentiable rasterizer (port of ``hierslam_tpu/ops/rasterize.py``).
 
 ``preprocess`` -> ``bin_bucketed`` (rank-assigned capacity classes) -> one
-gather of every per-gaussian blend quantity into per-slot rows ->
-each class blended once on its own ``(1, n_b)`` virtual tile grid (screen
-x shifted so class tile j lands at columns ``[j*tw, (j+1)*tw)``) -> one
-permutation of tile blocks back into the image.
+per-gaussian table of every blend quantity -> one gather of it into
+per-slot rows -> each class blended at its true tile ids and screen
+coordinates into buffers the classes share (``render_pallas.blend_classes``,
+one K1 launch a class), which then hold the image in tile order.
 
 Binning may be amortized: pass ``binning_cache=`` (from
 :func:`compute_binning` with a pixel margin) to reuse tile lists across
@@ -19,8 +19,9 @@ import torch
 
 from hierslam_torch import resolve_device
 from hierslam_torch.ops import binning, projection
-from hierslam_torch.ops.gather_vjp import gather_rows, pack_cols_table
-from hierslam_torch.ops.render_pallas import render_tiles_pallas
+from hierslam_torch.ops.gather_vjp import gather_rows
+from hierslam_torch.ops.render_pallas import blend_classes
+from hierslam_torch.ops.render_xla import tiles_to_image
 
 
 @dataclass(frozen=True)
@@ -115,26 +116,6 @@ def _slot_ok(idx, g_rect, tx, ty):
     )
 
 
-def _assemble_buckets(strips, ids_list, grid, tile_shape, H, W):
-    """[C, H, W] image from per-class strips ``[C, th, n_b*tw]`` (class tile
-    j at columns ``[j*tw, (j+1)*tw)``) and their true tile ids."""
-    gy, gx = grid
-    th, tw = tile_shape
-    pieces = []
-    for s, ids in zip(strips, ids_list):
-        nb = ids.shape[0]
-        C = s.shape[0]
-        pieces.append(s.reshape(C, th, nb, tw).permute(2, 0, 1, 3))
-    tiles_all = torch.cat(pieces, 0)                  # [T, C, th, tw]
-    ids_all = torch.cat(list(ids_list))
-    pos = torch.empty_like(ids_all)
-    pos[ids_all] = torch.arange(ids_all.shape[0], device=ids_all.device)
-    merged = tiles_all[pos]
-    C = merged.shape[1]
-    out = merged.reshape(gy, gx, C, th, tw).permute(2, 0, 3, 1, 4)
-    return out.reshape(C, gy * th, gx * tw)[:, :H, :W]
-
-
 def _normalize_inputs(opacities, scales):
     if opacities.dim() == 2:
         opacities = opacities[:, 0]
@@ -221,27 +202,24 @@ def rasterize(
     else:
         lists = binning_cache.lists
 
-    feat_cols = [colors[:, i] for i in range(colors.shape[1])]
-    if semantics is not None:
-        feat_cols += [semantics[:, i] for i in range(semantics.shape[1])]
-    rect_cols = [c.detach().float() for c in (
-        pc.rect_min_x, pc.rect_min_y, pc.rect_max_x, pc.rect_max_y, pc.valid)]
-    c_main = 7 + len(feat_cols)
     px, py = pc.x, pc.y
     if means2D_offset is not None:
         px = px + means2D_offset[:, 0]
         py = py + means2D_offset[:, 1]
-    table = pack_cols_table(
-        [px, py, pc.conic_a, pc.conic_b, pc.conic_c, opacities, pc.depth]
-        + feat_cols + rect_cols
-    )
+    main = [torch.stack([px, py, pc.conic_a, pc.conic_b, pc.conic_c, opacities.float(),
+                         pc.depth], 1), colors.float()]
+    if semantics is not None:
+        main.append(semantics.float())
+    rects = torch.stack([pc.rect_min_x, pc.rect_min_y, pc.rect_max_x, pc.rect_max_y,
+                         pc.valid.int()], 1).float()
+    table = torch.cat(main + [rects], 1)         # [N, 7 + F + 5]
+    c_main = table.shape[1] - 5
     g_comb = gather_rows(table, _combined_idx(lists), c_main,
                          config.grad_pair_budget, config.grad_bf16)
     k_min = lists.idx[-1].shape[1]
     grid_x = grid[1]
-    th_, tw_ = config.tile_shape
 
-    strips_acc, ids_list = [], []
+    tables, oks, ids = [], [], []
     row_off = 0
     for ids_b, idx_b in zip(lists.tile_ids, lists.idx):
         nb, kb = idx_b.shape
@@ -250,22 +228,14 @@ def rasterize(
         rows = nb * kb // k_min
         gb_all = g_comb[row_off:row_off + rows].reshape(nb, kb, -1)
         row_off += rows
-        gb = gb_all[..., :c_main]
         btx = (ids_b % grid_x).float()[:, None]
         bty = (ids_b // grid_x).float()[:, None]
-        slot_ok_b = _slot_ok(idx_b, gb_all[..., c_main:c_main + 5], btx, bty)
-        j = torch.arange(nb, dtype=torch.float32, device=gb.device)[:, None]
-        shift = torch.stack([(j - btx) * tw_, (-bty * th_).expand_as(j)], -1)
-        gb = torch.cat([gb[..., :2] + shift, gb[..., 2:]], -1)
-        acc_b, ft_b, med_b = render_tiles_pallas(
-            gb, slot_ok_b, image_shape=(th_, nb * tw_), tile_shape=config.tile_shape,
-            grid=(1, nb),
-        )
-        strips_acc.append(torch.cat([acc_b, ft_b[None], med_b[None]], 0))
-        ids_list.append(ids_b)
-
-    merged = _assemble_buckets(strips_acc, ids_list, grid, config.tile_shape, H, W)
-    acc, final_T, med = merged[:-2], merged[-2], merged[-1]
+        tables.append(gb_all[..., :c_main])
+        oks.append(_slot_ok(idx_b, gb_all[..., c_main:], btx, bty))
+        ids.append(ids_b)
+    acc, final_T, med = (tiles_to_image(x, grid, config.tile_shape, H, W) for x in
+                         blend_classes(tables, oks, ids, grid_x, config.tile_shape,
+                                       grid[0] * grid[1]))
     sem = acc[3:3 + semantics.shape[1]] if semantics is not None else None
     n_grad_dropped = (
         (lists.n_refs - config.grad_pair_budget).clamp_min(0)

@@ -5,8 +5,10 @@ frame binning and the per-slot raw attributes (world mean, color, opacity
 and shape) are gathered once per frame at the propagated pose, with a
 pixel margin for the in-frame drift; each iteration then only transforms
 the cached means, projects them per slot, re-applies the exact
-current-pose rect and frustum test, and blends.  Gradients reduce straight
-to the pose.  The shape of an isotropic map is one scale a slot
+current-pose rect and frustum test, and blends every class at its true
+tile ids and screen coordinates into buffers the classes share
+(``render_pallas.blend_classes``).  Gradients reduce straight to the
+pose.  The shape of an isotropic map is one scale a slot
 (``cov2d = s^2 J J^T + 0.3 I``); of an anisotropic one the frame-constant
 world covariance ``R s s^T R^T`` as six upper-triangle entries, folded
 with the current rotation ``W`` as ``(J W) S (J W)^T + 0.3 I``.
@@ -20,12 +22,13 @@ import torch
 
 from hierslam_torch.core import transforms
 from hierslam_torch.ops import projection
-from hierslam_torch.ops.rasterize import RasterConfig, _assemble_buckets, compute_binning
-from hierslam_torch.ops.render_pallas import render_tiles_pallas
+from hierslam_torch.ops.rasterize import RasterConfig, compute_binning
+from hierslam_torch.ops.render_pallas import blend_classes
+from hierslam_torch.ops.render_xla import tiles_to_image
 
 
 class TrackCache(NamedTuple):
-    tile_ids: Tuple[torch.Tensor, ...]     # per class: [n_b] true tile ids
+    tile_ids: Tuple[torch.Tensor, ...]     # per class: [n_b] int32 true tile ids
     means_world: Tuple[torch.Tensor, ...]  # [n_b, k_b, 3]
     colors: Tuple[torch.Tensor, ...]       # [n_b, k_b, 3]
     opacity: Tuple[torch.Tensor, ...]      # [n_b, k_b] post-sigmoid
@@ -73,8 +76,8 @@ def build_track_cache(params, active, q0, t0, camera, config: RasterConfig,
     prep0 = projection.preprocess(means_cam0, scales, rots_cam0, camera,
                                   config.tile_shape, active=active)
     return TrackCache(
-        tile_ids=tuple(b.lists.tile_ids), means_world=tuple(mw),
-        colors=tuple(cols), opacity=tuple(opas), scale=tuple(scs),
+        tile_ids=tuple(i.to(torch.int32) for i in b.lists.tile_ids),
+        means_world=tuple(mw), colors=tuple(cols), opacity=tuple(opas), scale=tuple(scs),
         slot_valid=tuple(valids), count=b.lists.count, radii0=prep0.radius,
         n_dropped=b.lists.n_dropped,
     )
@@ -93,7 +96,7 @@ def render_tracked(cache: TrackCache, q: torch.Tensor, t: torch.Tensor, camera,
     fx, fy = camera.focal_x, camera.focal_y
     limx, limy = 1.3 * camera.tan_fovx, 1.3 * camera.tan_fovy
 
-    strips_acc, ids_list = [], []
+    tables, oks, ids = [], [], []
     for bi, ids_b in enumerate(cache.tile_ids):
         nb = ids_b.shape[0]
         if nb == 0:
@@ -153,18 +156,12 @@ def render_tracked(cache: TrackCache, q: torch.Tensor, t: torch.Tensor, camera,
             valid = cache.slot_valid[bi] & in_front & det_ok & rect_ok
         opa = torch.where(valid, cache.opacity[bi], torch.zeros_like(cache.opacity[bi]))
 
-        j = torch.arange(nb, dtype=torch.float32, device=q.device)[:, None]
-        x = x + (j - btx) * tw
-        y = y - bty * th
-        table = torch.cat([x[..., None], y[..., None], conic, opa[..., None],
-                           z[..., None], cache.colors[bi]], -1)
-        acc_b, ft_b, med_b = render_tiles_pallas(
-            table, valid, image_shape=(th, nb * tw), tile_shape=config.tile_shape,
-            grid=(1, nb),
-        )
-        strips_acc.append(torch.cat([acc_b, ft_b[None], med_b[None]], 0))
-        ids_list.append(ids_b)
+        tables.append(torch.cat([x[..., None], y[..., None], conic, opa[..., None],
+                                 z[..., None], cache.colors[bi]], -1))
+        oks.append(valid)
+        ids.append(ids_b)
 
-    merged = _assemble_buckets(strips_acc, ids_list, grid, config.tile_shape, H, W)
-    acc, ft, med = merged[:-2], merged[-2], merged[-1]
+    acc, ft, med = (tiles_to_image(v, grid, config.tile_shape, H, W) for v in
+                    blend_classes(tables, oks, ids, grid_x, config.tile_shape,
+                                  grid[0] * grid[1]))
     return acc[:3], acc[-2], med, 1.0 - ft, acc[-1]

@@ -16,7 +16,7 @@ forwards' per-warp footprint cull and pixel layout (``csrc/cull.cuh``):
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -136,15 +136,22 @@ def tile_chunks(T: int, P: int, K: int):
 
 
 def blend_table(table: torch.Tensor, ok: torch.Tensor, grid_x: int,
-                tile_shape: Tuple[int, int]):
+                tile_shape: Tuple[int, int], tile_ids: Optional[torch.Tensor] = None,
+                out=None):
     """table [T, K, 7+F], ok [T, K] bool -> (acc [T, P, F+2], final_T [T, P],
-    median [T, P]).  Differentiable by autograd."""
+    median [T, P]).  Row b of the table is tile ``tile_ids[b]`` ([T]; tile b
+    where None) of a grid ``grid_x`` tiles wide; with ``out`` (acc, final_T,
+    median buffers of ``T_all`` rows, shared by the capacity classes of one
+    render) row b's results are written to row ``tile_ids[b]`` of each and
+    ``out`` is returned.  Differentiable by autograd."""
     T, K, _ = table.shape
     P = tile_shape[0] * tile_shape[1]
+    ids = (torch.arange(T, device=table.device) if tile_ids is None
+           else tile_ids.to(device=table.device, dtype=torch.int64))
     accs, fts, meds = [], [], []
     for lo, hi in tile_chunks(T, P, K):
         tab, okc = table[lo:hi], ok[lo:hi]
-        px, py = pixel_grid(torch.arange(lo, hi, device=table.device), tile_shape, grid_x)
+        px, py = pixel_grid(ids[lo:hi], tile_shape, grid_x)
         (_, _, _, _, contrib, _, Ta, Tb, committed, w) = blend_terms(tab, okc, px, py)
         accs.append(torch.einsum("bpk,bkc->bpc", w, _feats(tab)))
         fts.append(torch.where(committed, Ta, torch.ones_like(Ta)).amin(-1).clamp_max(1.0))
@@ -152,7 +159,12 @@ def blend_table(table: torch.Tensor, ok: torch.Tensor, grid_x: int,
         dep = tab[:, None, :, 6].expand_as(Ta)
         med = torch.where(crossing, dep, torch.zeros_like(dep)).sum(-1)
         meds.append(torch.where(crossing.any(-1), med, torch.full_like(med, MEDIAN_DEFAULT)))
-    return torch.cat(accs), torch.cat(fts), torch.cat(meds)
+    res = torch.cat(accs), torch.cat(fts), torch.cat(meds)
+    if out is None:
+        return res
+    for buf, x in zip(out, res):
+        buf.index_copy_(0, ids, x)
+    return out
 
 
 def tiles_to_image(x: torch.Tensor, grid: Tuple[int, int], tile_shape, H: int, W: int):

@@ -18,6 +18,9 @@ loaders of ``hierslam_torch.datasets``), or from a ``dataset=`` object:
 checkpoint) with a loader thread ahead of it; ``run_slam`` adds the final
 eval.  With ``parallel.map_data_devices = D > 1`` the mapping phases run
 keyframe data-parallel over a mesh of D ranks (``parallel/shard.py``).
+``config["profile"]`` traces the frames it lists with ``torch.profiler``
+(``run``); ``use_wandb`` sends the metrics and progress panels to wandb
+where it imports (``utils/logging.RunLogger``).
 """
 from __future__ import annotations
 
@@ -55,12 +58,6 @@ class SLAMRunner:
     def __init__(self, config: Dict, dataset=None, device="cuda", mesh=None):
         self.device = dev = resolve_device(device)
         self.config = config = apply_defaults(config)
-        if config.get("use_wandb", False):
-            raise NotImplementedError("wandb logging is not ported (ROADMAP.md)")
-        if config.get("profile"):
-            raise NotImplementedError(
-                "config['profile'] (device traces of listed frames) is not ported; "
-                "tools/profile_torch_slam.py traces a tracked and a mapped frame")
         uio.seed_everything(config["seed"])
         self.rng = np.random.default_rng(config["seed"])
         # random draws come from a CPU generator, so a run draws the same
@@ -204,7 +201,8 @@ class SLAMRunner:
 
         self.keyframes = KeyframeStore()
         self.gt_w2c_all: List[np.ndarray] = []
-        self.logger = RunLogger(self.output_dir)
+        self.logger = RunLogger(self.output_dir, use_wandb=config.get("use_wandb", False),
+                                wandb_cfg=config.get("wandb"))
         self._progress_render = _build_renderer(self.camera, rc, with_semantic=False)
         self.plots = plotting_available()
         if not self.plots:
@@ -541,7 +539,7 @@ class SLAMRunner:
         try:
             report_progress(self._progress_render, self.params, im, depth, t, self.gt_w2c_all,
                             sil_thres, self.plot_dir, phase=phase, save_plot=self.plots,
-                            logger=self.logger)
+                            wandb_run=self.logger.wandb, logger=self.logger)
         except Exception:   # a report must not end the run
             traceback.print_exc()
             self.stats["progress_failed"] += 1
@@ -556,17 +554,42 @@ class SLAMRunner:
                 np.array(self.keyframes.time_indices))
         uio.save_semantic_decoder(self._mlp_numpy(), self.output_dir, suffix=f"_{t}")
 
+    def _profiled_step(self, t: int, frame, trace_dir: str) -> str:
+        """``step(t)`` under ``torch.profiler`` (the CPU and, on the card,
+        CUDA activities); the Chrome trace is written to
+        ``trace_dir/frame{t}.json``, whose path is returned."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        with profile(activities=acts) as prof:
+            self.step(t, frame)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        path = os.path.join(trace_dir, f"frame{t}.json")
+        prof.export_chrome_trace(path)
+        return path
+
     def run(self, progress: bool = True):
         """Step frames ``start_idx .. num_frames - 1`` (loaded by a thread
         two frames ahead), save ``params.npz``, plot metrics.png where
         matplotlib is installed and print the runtime summary.  A frame
-        that raises leaves an emergency checkpoint."""
+        that raises leaves an emergency checkpoint.  ``config["profile"] =
+        {"trace_dir": str, "frames": [..]}`` traces each listed frame's step
+        into a file of its own under ``trace_dir`` (``_profiled_step``)."""
+        prof = self.config.get("profile") or {}
+        prof_frames = set(prof.get("frames", ()))
         frames = Prefetcher(self._load_frame, self.start_idx, self.num_frames, depth=2)
         t_run = time.time()
         try:
             for t, frame in frames:
                 try:
-                    self.step(t, frame)
+                    if t in prof_frames:
+                        self._profiled_step(t, frame, prof["trace_dir"])
+                    else:
+                        self.step(t, frame)
                 except Exception:
                     self.emergency_checkpoint(t)
                     raise

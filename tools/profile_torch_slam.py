@@ -7,9 +7,13 @@ on frames of the procedural room at 1200x680 with 26 semantic channels,
 as ``chip_smoke.py`` does, for frames
 0..N-3 unprofiled, then profiles frame N-2 (tracking only) and frame N-1
 (tracking, densify and a mapping phase when N is a multiple of
-``map_every``) with torch.profiler.  Prints each frame's device-time table
-by kernel and the device busy share of its wall time, and writes the
-tracking frame's chrome trace under ``chiprun_out/``.
+``map_every``) with torch.profiler.  Prints tracking_iter_ms and
+mapping_iter_ms of the unprofiled frames, each profiled frame's
+device-time table by kernel, the device busy share of its wall time and
+its kernel launches (per tracking iteration for frame N-2), and writes the
+tracking frame's Chrome trace into the checkout's output directory (the
+path is printed).  The runner's own ``config["profile"]`` traces listed
+frames the same way.
 
     python3 tools/profile_torch_slam.py [--frames 8] [--top 30] [--backend pallas]
 """
@@ -64,6 +68,9 @@ def main() -> int:
     for t in range(n - 2):
         runner.step(t)
     torch.cuda.synchronize()
+    summ = runner.runtime_summary()
+    print(f"frames 0-{n - 3} unprofiled: tracking_iter_ms {summ['tracking_iter_ms']:.3f} "
+          f"mapping_iter_ms {summ['mapping_iter_ms']:.3f}", flush=True)
     # frame n-2 tracks only; frame n-1 tracks, densifies and maps
     for t in (n - 2, n - 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -78,9 +85,11 @@ def main() -> int:
                 ms, cnt = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
         busy = sum(ms for ms, _ in by_name.values())
+        n_k = sum(c for _, c in by_name.values())
         print(f"profiled frame {t}: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
-              f"({100 * busy / (wall * 1e3):.1f}% of wall), {sum(c for _, c in by_name.values())} "
-              "kernel launches", flush=True)
+              f"({100 * busy / (wall * 1e3):.1f}% of wall), {n_k} kernel launches"
+              + (f", {n_k / cfg['tracking']['num_iters']:.1f} per tracking iteration"
+                 if t == n - 2 else ""), flush=True)
         for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]:
             print(f"  {ms:10.3f} ms {100 * ms / busy:5.1f}% {cnt:7d}x  {name[:100]}", flush=True)
         if t == n - 2:
