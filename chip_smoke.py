@@ -12,7 +12,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. environment: card name and power limit (nvidia-smi), kernel build with
    nvcc from ``hierslam_torch/csrc`` (one nvcc per source, in parallel),
-   the ptxas report of K1-K4 (registers, shared memory, spill bytes; a
+   the ptxas report of K1-K5 (registers, shared memory, spill bytes; a
    spill in any instantiation fails the run);
 2. kernels: K1-K4 against their plain PyTorch versions at F = 1, 3, 29,
    32, 33, 64, 77 and 128 (every feature bucket's edges, the widest the
@@ -44,9 +44,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    26 semantic channels, the flagship config
    (configs/replica/hierslam_semantic_run.py) as shipped
    (``raster.backend="stream"``): tracking on frames 1-7 (K1/K2), densify
-   at t=7 (K1), stream mapping at t=0 and t=7 (K3/K4); launch counts must
+   at t=7 (K1), stream mapping at t=0 and t=7 (K3/K4, and K5, the
+   gather's backward, once an iteration); launch counts must
    equal what the config implies with no plain-version call, losses must
-   be finite, ``params.npz`` must carry the JAX runner's keys;
+   be finite, ``params.npz`` must carry the JAX runner's keys; K5 on the
+   first mapping iteration's backward (the pair stream's gather) against
+   its plain version, to the bit, twice, timed beside ``index_add_``;
 5. ladder: the same config with ``raster.backend="pallas"`` on 3 frames
    (mapping at t=0 and, after a densify, at t=2), with its own count check;
 6. cli, the disk-to-eval path: the 8 procedural frames written in the
@@ -105,11 +108,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    port's loader (association, undistortion) and checked; then
    configs/replica/hierslam_nosemantic_run.py through the CLI with only
    its ``data`` block pointed at tum.yaml and the sequence (480x640),
-   ``workdir`` and ``num_frames`` changed, run under PyTorch's
-   deterministic algorithms (its camera-centre error otherwise spreads
-   with the float order of ``index_add_``: ``tum_phase``), with the checks
-   of 9 and K1/K2 on its first tracking table (the rank ladder's first
-   class on the 40x30 tile grid, F = 3);
+   ``workdir`` and ``num_frames`` changed, run twice with the float order
+   free: both runs must read the same frame-7 camera-centre error to the
+   bit (``tum_phase``); the checks of 9, K1/K2 on its first tracking table
+   (the rank ladder's first class on the 40x30 tile grid, F = 3) and K5 on
+   its ladder mapper's first backward, to the bit;
 11. capacity: 3 frames at 96x64 with GT poses in a map of 8,192 slots on
    the GPU and on the CPU, each frame from the same state on both: the
    bucket grows, pruning holes are compacted and the least-opaque
@@ -157,9 +160,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    single render (1e-5 image, 1e-4 depth at every pixel but those proven to
    part by a slot at a blend threshold, counted); at 96x64 the data-parallel
    mapper with equal columns against the single mapper with both backends
-   under deterministic algorithms (JAX's test tolerances); K1 on the last
-   strip's tables (rows past the image) and K3/K4 on rank 1's first mapping
-   stream against their plain versions, with timings.
+   with the float order free (JAX's test tolerances, equal rank
+   checksums); K1 on the last strip's tables (rows past the image) and
+   K3/K4 on rank 1's first mapping stream against their plain versions,
+   with timings;
+17. repro: the flagship's first 3 frames at 1200x680 with each mapper
+   (``stream``, ``pallas``), twice in this process: every ``params.npz``
+   array and every frame's pose equal to the bit.
 
 The launch counts of phases 4-6 include the two t = 0 progress renders (K1
 at each ``bucket_spec`` class) that ``SLAMRunner.step`` makes.  Every ladder
@@ -348,8 +355,9 @@ def ptxas_summary(text: str):
         if m:
             n = int(m.group(1))
             name, rest = m.group(2)[:n], m.group(2)[n:]
-            t = re.match(r"ILi(\d+)E", rest)
-            cur = out.setdefault(f"{name}<{t.group(1)}>" if t else name, {})
+            t = re.match(r"IL[ib](\d+)E(?:L[ib](\d+)E)?", rest)
+            args = ",".join(a for a in t.groups() if a is not None) if t else ""
+            cur = out.setdefault(f"{name}<{args}>" if t else name, {})
             continue
         if cur is None:
             continue
@@ -942,6 +950,87 @@ def recording_blend_fwd(seen: list, n_feat: Optional[int] = None, pick=None,
         kernels.blend_fwd = launch
 
 
+@contextlib.contextmanager
+def recording_gather_bwd(seen: list):
+    """While active, the first call of the wrapper ``kernels.gather_bwd``
+    leaves copies of its arguments (cotangent rows, spos, ends, summed
+    columns, bf16 rounding) in ``seen``, in host memory, so that they add
+    nothing to the run's peak device memory; every call still goes to the
+    kernel."""
+    from hierslam_torch.ops import kernels
+
+    launch = kernels.gather_bwd
+
+    def recording(cot, spos, ends, n_diff, grad_bf16):
+        if not seen:
+            seen.append((cot.cpu(), spos.cpu(), ends.cpu(), n_diff, grad_bf16))
+        return launch(cot, spos, ends, n_diff, grad_bf16)
+
+    kernels.gather_bwd = recording
+    try:
+        yield
+    finally:
+        kernels.gather_bwd = launch
+
+
+def check_gather(name: str, cot, spos, ends, n_diff: int, grad_bf16: bool, reps: int = 20):
+    """K5 against its plain version on a gather backward (inputs on the
+    host or the card): two launches, each equal to the bit to the plain
+    version on a CPU copy of the inputs (both add each run from 0 in
+    ascending position order).  Times K5, the plain version on the card,
+    and the backward before the inverse map: one ``index_add_`` of every
+    cotangent row, in gather order, into the row its position references
+    (a pad's row, zeroed, into row 0), with the float order free and as
+    ``index_add_`` runs under deterministic algorithms (``index_put_`` with
+    ``accumulate=True``, sort-based).  Returns (JSON rows, ok)."""
+    import torch
+
+    from hierslam_torch.ops import gather_vjp, kernels
+
+    want = gather_vjp.gather_bwd_plain(cot.cpu(), spos.cpu(), ends.cpu(), n_diff, grad_bf16)
+    dev = torch.device("cuda")
+    cot, spos, ends = cot.to(dev), spos.to(dev), ends.to(dev)
+    M, C = cot.shape
+    N, m = ends.shape[0], spos.shape[0]
+    first = kernels.gather_bwd(cot, spos, ends, n_diff, grad_bf16).cpu()
+    second = kernels.gather_bwd(cot, spos, ends, n_diff, grad_bf16).cpu()
+    same = torch.equal(first, want) and torch.equal(second, want)
+    err = float((first - want).abs().max())
+    e = ends.long().clamp_max(m)
+    n_ref = e - torch.cat([e.new_zeros(1), e[:-1]])
+    refs = int(e[-1])
+    ms = cuda_ms(lambda: kernels.gather_bwd(cot, spos, ends, n_diff, grad_bf16), reps)
+    plain_ms = cuda_ms(lambda: gather_vjp.gather_bwd_plain(cot, spos, ends, n_diff, grad_bf16), 3)
+    pos = spos[:refs].long()
+    rows = torch.zeros((M,), dtype=torch.long, device=dev)
+    rows[pos] = torch.repeat_interleave(torch.arange(N, device=dev), n_ref)
+    valid = torch.zeros((M, 1), device=dev)
+    valid[pos] = 1.0
+    src = cot[:, :n_diff]
+    if grad_bf16:
+        src = src.to(torch.bfloat16).float()
+    src = (src * valid).contiguous()
+    out = torch.zeros((N, n_diff), device=dev)
+    lib_ms = cuda_ms(lambda: out.index_add_(0, rows, src), reps)
+    det_ms = cuda_ms(lambda: out.index_put_((rows,), src, accumulate=True), reps)
+    # each referenced cotangent row's summed columns, its position and every
+    # run end read once; every element of grad written once; one add a term
+    bb, bb_by = bound(refs * (n_diff + 1) * 4 + N * 4 + N * C * 4, refs * n_diff)
+    print(f"[kernels] {name} K5: two launches equal to the bit to the plain version on the "
+          f"CPU: {same} (max abs err {err:.3e}); N={N} rows, M={M} positions, {refs} "
+          f"references, longest run {int(n_ref.max())}, C={C}, summed columns {n_diff}, "
+          f"bf16 {grad_bf16}; K5 {ms:.4f} ms (bound {bb:.4f} ms by {bb_by}, "
+          f"{100 * bb / ms:.1f}%); plain {plain_ms:.3f} ms; index_add_ with the float order "
+          f"free {lib_ms:.4f} ms, deterministic (index_put_ accumulate) {det_ms:.4f} ms",
+          flush=True)
+    row = dict(kernel="gather_bwd", name=f"gather_bwd_K5[{name}]", route="cuda",
+               source="hierslam_torch/csrc/gather.cu",
+               replaces="hierslam_tpu/ops/gather_vjp.py:218", ms=ms, plain_ms=plain_ms,
+               bound_ms=bb, bound_by=bb_by, library_ms=lib_ms,
+               library_deterministic_ms=det_ms, max_abs_err=err)
+    return [row], same
+
+
 def tracking_table(cfg_path: str):
     """The ``k1_record`` of what the first tracking iteration of frame
     ``RECORD_FRAME`` hands to K1 in the flagship run, from a run of
@@ -963,20 +1052,22 @@ def tracking_table(cfg_path: str):
 
 def reset_counts() -> None:
     """Zero the kernels' launch counts and the plain versions' call counts."""
-    from hierslam_torch.ops import kernels, render_pallas, render_stream
+    from hierslam_torch.ops import gather_vjp, kernels, render_pallas, render_stream
 
     kernels.reset_launch_counts()
-    for counts in (render_pallas.plain_counts, render_stream.plain_counts):
+    for counts in (render_pallas.plain_counts, render_stream.plain_counts,
+                   gather_vjp.plain_counts):
         for k in counts:
             counts[k] = 0
 
 
 def read_counts():
     """-> (kernel launches, plain-version calls) since ``reset_counts``."""
-    from hierslam_torch.ops import kernels, render_pallas, render_stream
+    from hierslam_torch.ops import gather_vjp, kernels, render_pallas, render_stream
 
     return (dict(kernels.launch_counts),
-            dict(render_pallas.plain_counts, **render_stream.plain_counts))
+            dict(render_pallas.plain_counts, **render_stream.plain_counts,
+                 **gather_vjp.plain_counts))
 
 
 def ladder_classes(rc, H: int, W: int) -> int:
@@ -989,12 +1080,15 @@ def ladder_classes(rc, H: int, W: int) -> int:
 
 
 def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
-               map_every: Optional[int] = None, record: Optional[list] = None):
+               map_every: Optional[int] = None, record: Optional[list] = None,
+               gather_record: Optional[list] = None):
     """Drive ``SLAMRunner.step`` over ``n_frames`` procedural frames at
     1200x680 with the flagship config (``backend``/``map_every`` override
     it when given).  Launch counts are zeroed just before the run and read
     just after.  With ``record`` (a list), frame ``RECORD_FRAME``'s first
-    tracking table is left in it.  Returns (ok, launches, summary)."""
+    tracking table is left in it; with ``gather_record``, the inputs of the
+    first K5 launch (frame 0's first mapping backward).  Returns (ok,
+    launches, summary)."""
     import numpy as np
     import torch
 
@@ -1023,8 +1117,11 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
     n_track = n_map = n_dens = 0
     t_run = time.time()
     for t in range(n_frames):
-        with (recording_blend_fwd(record) if record is not None and t == RECORD_FRAME
-              else contextlib.nullcontext()):
+        with contextlib.ExitStack() as stack:
+            if record is not None and t == RECORD_FRAME:
+                stack.enter_context(recording_blend_fwd(record))
+            if gather_record is not None and t == 0:
+                stack.enter_context(recording_gather_bwd(gather_record))
             runner.step(t)
         line = f"{tag} frame {t}:"
         if t > 0:
@@ -1053,11 +1150,12 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
     n_prog = 2 * n_classes        # the t = 0 progress renders, after tracking and mapping
     if backend == "stream":
         want = {"blend_fwd": n_track * it_t + n_dens + n_prog, "blend_bwd": n_track * it_t,
-                "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m}
+                "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
+                "gather_bwd": n_map * it_m}
     else:
         want = {"blend_fwd": n_track * it_t + n_dens + n_prog + n_map * it_m * n_classes,
                 "blend_bwd": n_track * it_t + n_map * it_m * n_classes,
-                "stream_fwd": 0, "stream_bwd": 0}
+                "stream_fwd": 0, "stream_bwd": 0, "gather_bwd": n_map * it_m}
     print(f"{tag} launches: {json.dumps(launches)} expected: {json.dumps(want)} plain calls: "
           f"{json.dumps(plain)}", flush=True)
     ok &= launches == want
@@ -1258,7 +1356,8 @@ def cli_phase(cfg_path: str):
     n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
     n_classes = ladder_classes(raster_config(cfg), FRAME["H"], FRAME["W"])
     want = {"blend_fwd": (n - 1) * it_t + (n_map - 1) + (2 + n_eval) * n_classes,
-            "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m}
+            "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
+            "gather_bwd": n_map * it_m}
     files = ("params.npz", "semantic_decoder.npz", "config.py", "params4.npz",
              "keyframe_time_indices4.npy", "semantic_decoder_4.npz")
     missing = [f for f in files if not os.path.isfile(os.path.join(run_dir, f))]
@@ -1292,10 +1391,10 @@ PROFILED = (6, 7)   # [cli]: config["profile"] traces frame 6 (tracked) and 7 (t
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")   # device events of a Chrome trace
 
 
-def trace_summary(path: str, top: int = 8):
+def trace_summary(path: str):
     """From a ``torch.profiler`` Chrome trace: the span of its events (ms),
     the device time (kernels, copies and sets, ms), the kernel launches and
-    the ``top`` kernels by device time as (name, ms, count)."""
+    every kernel by device time as (name, ms, count), longest first."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
     dev = [e for e in events if e.get("cat") in DEVICE_CATS]
@@ -1306,8 +1405,7 @@ def trace_summary(path: str, top: int = 8):
             by_name[e["name"]] = (ms + e["dur"] / 1e3, cnt + 1)
     span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
     ranked = sorted(((n, ms, c) for n, (ms, c) in by_name.items()), key=lambda r: -r[1])
-    return span, sum(e["dur"] for e in dev) / 1e3, sum(c for _, c in by_name.values()), \
-        ranked[:top]
+    return span, sum(e["dur"] for e in dev) / 1e3, sum(c for _, c in by_name.values()), ranked
 
 
 def profile_summary(trace_dir: str, it_t: int, it_m: int) -> bool:
@@ -1329,8 +1427,15 @@ def profile_summary(trace_dir: str, it_t: int, it_m: int) -> bool:
         print(f"[cli] profile frame {t}: span {span:.1f} ms, device {busy:.1f} ms "
               f"({100 * busy / span:.1f}% of the span), {n_k} kernel launches; trace "
               f"{size:.1f} MiB", flush=True)
-        for name, ms, cnt in ranked:
+        for name, ms, cnt in ranked[:8]:
             print(f"[cli]   {ms:9.3f} ms {cnt:6d}x {name[:90]}", flush=True)
+        # the gather's backward (K5) and any scatter left on the path
+        for part in ("gather_bwd_kernel", "indexFunc", "index_put", "scatter"):
+            hits = [(name, ms, cnt) for name, ms, cnt in ranked if part in name]
+            print(f"[cli]   kernels named *{part}*: {sum(h[1] for h in hits):.3f} ms, "
+                  f"{sum(h[2] for h in hits)} launches"
+                  + "".join(f"; {ms:.3f} ms {cnt}x {name[:100]}" for name, ms, cnt in hits[:3]),
+                  flush=True)
     if ok:
         a, b = PROFILED
         print(f"[cli] profile: launches per tracking iteration {launches[a] / it_t:.1f} (frame "
@@ -1455,7 +1560,7 @@ def eval_novel_view_phase(finished, final):
     n_show = sum(1 for t in (0, n // 2) if t < n)
     n_cls = ladder_classes(raster_config(cfg), FRAME["H"], FRAME["W"])
     want = {"blend_fwd": (n_eval + n_show) * n_cls, "blend_bwd": 0, "stream_fwd": 0,
-            "stream_bwd": 0}
+            "stream_bwd": 0, "gather_bwd": 0}
     eval_dir = os.path.join(run_dir, "eval")
     n_levels = len(SEM_LEVELS)
     expect = {"renders": n_eval, "renders_depth": n_eval, "rgb": n_eval, "depth": n_eval,
@@ -1693,7 +1798,8 @@ def scannet_run(cfg_path: str, root: str, n: int, n_feat: int):
     n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
     n_classes = ladder_classes(raster_config(cfg), SCANNET_FRAME["H"], SCANNET_FRAME["W"])
     want = {"blend_fwd": (n - 1) * it_t + (n_map - 1) + (2 + n_eval) * n_classes,
-            "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m}
+            "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
+            "gather_bwd": n_map * it_m}
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r[k] for r in recs for k in ("tracking_loss", "mapping_loss") if k in r]
@@ -1847,7 +1953,8 @@ def replica_run(cfg_path: str, root: str, n: int, tables=None, data=None, frame=
     n_tcls = track_classes(rc, frame["H"], frame["W"])
     n_track = 0 if gt else (n - 1) * it_t * n_tcls
     want = {"blend_fwd": n_track + (n_map - 1) + (2 + n_eval) * n_cls + n_map * it_m * n_cls,
-            "blend_bwd": n_track + n_map * it_m * n_cls, "stream_fwd": 0, "stream_bwd": 0}
+            "blend_bwd": n_track + n_map * it_m * n_cls, "stream_fwd": 0, "stream_bwd": 0,
+            "gather_bwd": n_map * it_m}
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r[k] for r in recs for k in ("tracking_loss", "mapping_loss") if k in r]
@@ -2066,51 +2173,45 @@ def check_tum_loader(root: str, frames, n: int) -> bool:
     return ok
 
 
-@contextlib.contextmanager
-def deterministic_algorithms():
-    """``torch.use_deterministic_algorithms(True)`` for the body: the
-    gather backward's ``index_add_`` and the autograd of indexing then sum
-    in one fixed order (cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG``, set by
-    ``main``)."""
-    import torch
-
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was)
+TUM_RUNS = 2   # [tum] runs the CLI twice: the same centre error, to the bit
 
 
 def tum_phase():
     """Phase 10 (the module docstring).  Returns (ok, JSON rows, launches).
 
-    The run is made under PyTorch's deterministic algorithms.  Without
-    them the same inputs gave a frame-7 camera-centre error of 2.9 to 7.3
-    cm over five runs on an H100 and passed the bound in two of six: the
-    nosemantic config tracks seven frames against frame 0's map, and
-    where its tracking ends moves with the float order of the GPU's
-    scatter-adds (``index_add_``, the autograd of indexing).  The
-    deterministic order makes the error one number, the same in every
-    run and process; a mapping step then costs about 7x
-    (``tools/tum_drift_torch.py`` runs both and other variants)."""
+    The run is made twice in this process with the float order free, and
+    both must read the same frame-7 camera-centre error to the bit, inside
+    its bound.  Before the gather's backward summed each row's references
+    in a fixed order (K5), the same inputs gave 2.9 to 7.3 cm over five
+    runs on an H100 and passed the bound in two of six: the nosemantic
+    config tracks seven frames against frame 0's map, and where its
+    tracking ends moved with the order of the GPU's atomic adds
+    (``tools/tum_drift_torch.py`` runs the variants)."""
     root = tempfile.mkdtemp()
     n = 8
     frames, dt = write_tum(root, n)
     print(f"[tum] wrote {n} frames at {TUM_FRAME['W']}x{TUM_FRAME['H']} to the TUM layout "
           f"(colour through tum.yaml's distortion) in {dt:.1f} s", flush=True)
     ok = check_tum_loader(root, frames, n)
-    tables = {}
+    tables, gather_seen = {}, []
     data = dict(gradslam_data_cfg=TUM_YAML, basedir=root, sequence=TUM_SEQ,
                 desired_image_height=TUM_FRAME["H"], desired_image_width=TUM_FRAME["W"])
-    print("[tum] the run below uses PyTorch's deterministic algorithms", flush=True)
-    with deterministic_algorithms():
-        good, launches, _ = replica_run(REPLICA_CONFIGS[0], root, n, tables, data=data,
-                                        frame=TUM_FRAME, tag="[tum]")
-    ok &= good
+    errs = []
+    for i in range(TUM_RUNS):
+        with recording_gather_bwd(gather_seen) if i == 0 else contextlib.nullcontext():
+            good, run_launches, e = replica_run(REPLICA_CONFIGS[0], root, n,
+                                                tables if i == 0 else None, data=data,
+                                                frame=TUM_FRAME, tag=f"[tum run {i + 1}]")
+        ok &= good
+        errs.append(e[-1])
+        launches = launches if i else run_launches
+    same = len(set(errs)) == 1
+    print(f"[tum] frame {n - 1} camera-centre error of the {TUM_RUNS} runs (cm): "
+          + " ".join(repr(e) for e in errs) + f"; equal to the bit: {same}", flush=True)
+    ok &= same
     rows = []
-    if not tables.get("tracking"):
-        print("[tum] no tracking table was recorded", flush=True)
+    if not tables.get("tracking") or not gather_seen:
+        print("[tum] no tracking table or gather backward was recorded", flush=True)
         return False, rows, launches
     table, slot_ok, gx, ids, n_t = tables["tracking"][0]
     T, K, C = table.shape
@@ -2118,9 +2219,10 @@ def tum_phase():
           f"{100 * float(slot_ok.float().mean()):.1f}% of the slots live", flush=True)
     r, good = check_kernels(f"tum tracking table T={T} K={K} F={C - 7}", table, slot_ok, gx, 20,
                             seed=7, flips_allowed=2, tile_ids=ids, n_tiles=n_t)
-    for row in r:
+    r2, good2 = check_gather("tum ladder mapper first backward", *gather_seen[0])
+    for row in r + r2:
         row["path"] = "tum"
-    return ok and good, r, launches
+    return ok and good and good2, r + r2, launches
 
 
 def runner_state(r, dev):
@@ -2258,7 +2360,8 @@ def real_shape_phase():
     n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
     n_cls = ladder_classes(runner.rc, runner.H, runner.W)
     want = {"blend_fwd": (n - 1) * it_t + densifies[0] + (2 + n_eval) * n_cls,
-            "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m}
+            "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
+            "gather_bwd": n_map * it_m}
     print(f"[real_shape] F = {width} (3 + num_semantic); {n} frames of the 200-frame "
           f"procedural room at "
           f"{report['image'][0]}x{report['image'][1]}, tools/real_shape_run_torch.py's "
@@ -2432,7 +2535,7 @@ def classic_phase():
     want = {"blend_fwd": (n - 1) * it_t * n_tcls + (n_map - 1) + 2 * n_cls
             + n_map * it_m * n_cls,
             "blend_bwd": (n - 1) * it_t * n_tcls + n_map * it_m * n_cls,
-            "stream_fwd": 0, "stream_bwd": 0}
+            "stream_fwd": 0, "stream_bwd": 0, "gather_bwd": n_map * it_m}
     for e in events:
         print(f"{tag} densify at iteration {e['it']}: clones {int(e['clone'].sum())} splits "
               f"{int(e['split'].sum())} pruned {e['pruned']} of {e['rows']} rows, overflow "
@@ -2622,7 +2725,9 @@ def aniso_phase(final_state, small_state):
     it_t = cfg_of(True)["tracking"]["num_iters"]
     n_tcls = track_classes(rc, FRAME["H"], FRAME["W"])
     per = len(ANISO_FRAMES) * it_t * n_tcls
-    want = {"blend_fwd": 2 * per, "blend_bwd": 2 * per, "stream_fwd": 0, "stream_bwd": 0}
+    # the uncached tracker's renders gather the map: one K5 an iteration
+    want = {"blend_fwd": 2 * per, "blend_bwd": 2 * per, "stream_fwd": 0, "stream_bwd": 0,
+            "gather_bwd": len(ANISO_FRAMES) * it_t}
     ok = launches == want and not any(plain.values())
     for use_cache, r in runs.items():
         summ = r.runtime_summary()
@@ -2716,7 +2821,8 @@ def visualize_phase(finished):
     got = sorted(f for f in os.listdir(viz_dir) if f.endswith(".png"))
     sizes = {png_size(os.path.join(viz_dir, f)) for f in got}
     n_cls = ladder_classes(raster_config(cfg), FRAME["H"], FRAME["W"])
-    want = {"blend_fwd": len(shown) * n_cls, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0}
+    want = {"blend_fwd": len(shown) * n_cls, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0,
+            "gather_bwd": 0}
     print(f"{tag} python3 -m hierslam_torch.scripts.visualize {' '.join(argv[1:])} on the "
           f"[cli] run ({n} frames, F = {3 + sum(SEM_LEVELS)}, its semantic_decoder.npz): wrote "
           f"{len(got)} PNGs to {out}: {got} (expected {expect}), sizes "
@@ -2861,9 +2967,9 @@ def parallel_map_run(cfg_path: str, record: dict):
     it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
     n_prog = 2 * ladder_classes(runner.rc, runner.H, runner.W)
     want0 = {"blend_fwd": n_track * it_t + n_dens + n_prog, "blend_bwd": n_track * it_t,
-             "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m}
+             "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m, "gather_bwd": n_map * it_m}
     want_w = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": n_map * it_m,
-              "stream_bwd": n_map * it_m}
+              "stream_bwd": n_map * it_m, "gather_bwd": n_map * it_m}
     for r, (launches, plain) in enumerate(counts):
         want = want0 if r == 0 else want_w
         print(f"{tag} rank {r} launches {json.dumps(launches)} expected {json.dumps(want)} "
@@ -2887,9 +2993,7 @@ def parallel_equal_check(cfg_path: str, backend: str, mesh) -> bool:
     """[parallel] (b): at 96x64 the data-parallel mapper on ``mesh`` (2
     ranks on this card) with equal columns against the single mapper, both
     built by ``SLAMRunner`` from the flagship config, on one state after 3
-    frames, under deterministic algorithms on every rank (the caller's
-    ``deterministic_algorithms`` here, set on the workers by the caller);
-    JAX's test tolerances (loss 5e-4 relative, means and colours 3e-4)."""
+    frames, with the float order free on every rank; JAX's test tolerances (loss 5e-4 relative, means and colours 3e-4)."""
     import numpy as np
     import torch
 
@@ -3109,10 +3213,8 @@ def parallel_phase(cfg_path: str):
     with mesh:
         good, strip_launches = parallel_render_check(runner, mesh)
         ok &= good
-        mesh.run_workers(torch.use_deterministic_algorithms, True)
-        with deterministic_algorithms():
-            for backend in ("stream", "pallas"):
-                ok &= parallel_equal_check(cfg_path, backend, mesh)
+        for backend in ("stream", "pallas"):
+            ok &= parallel_equal_check(cfg_path, backend, mesh)
     D = PARALLEL_RENDER_D
     with make_mesh(D, devices=["cuda:0"] * D) as mesh:
         good, strip_launches = parallel_render_check(runner, mesh, record=record)
@@ -3151,6 +3253,54 @@ def parallel_phase(cfg_path: str):
     return ok, rows, map_launches, strip_launches
 
 
+REPRO_FRAMES = 3   # [repro]: mapping at t = 0 and, after a densify, at t = 2
+
+
+def repro_run(cfg_path: str, backend: str, ds):
+    """The flagship config with ``raster.backend`` set on the
+    ``REPRO_FRAMES`` frames of ``ds`` -> (every array of its params.npz,
+    the estimated w2c of every frame)."""
+    import numpy as np
+
+    from hierslam_torch.config import load_config
+    from hierslam_torch.slam.pipeline import SLAMRunner
+    from hierslam_torch.slam.tracking import est_w2c
+
+    cfg = load_config(cfg_path)
+    cfg["raster"]["backend"] = backend
+    cfg["data"]["num_frames"] = REPRO_FRAMES
+    cfg.update(map_every=REPRO_FRAMES, workdir=tempfile.mkdtemp())
+    runner = SLAMRunner(cfg, dataset=ds, device="cuda")
+    for t in range(REPRO_FRAMES):
+        runner.step(t)
+    runner.finalize()
+    with np.load(os.path.join(cfg["workdir"], cfg["run_name"], "params.npz")) as data:
+        arrays = {k: data[k] for k in data.files}
+    return arrays, [est_w2c(runner.params, t).cpu().numpy() for t in range(REPRO_FRAMES)]
+
+
+def bits_equal(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def repro_phase(cfg_path: str) -> bool:
+    """Phase 17 (the module docstring): the flagship's 3-frame run with each
+    mapper twice in this process, equal to the bit."""
+    ds = room_dataset(REPRO_FRAMES, 1200, 680, 600.0)
+    ok = True
+    for backend in ("stream", "pallas"):
+        t0 = time.time()
+        (pa, wa), (pb, wb) = (repro_run(cfg_path, backend, ds) for _ in range(2))
+        differ = sorted(k for k in pa.keys() | pb.keys()
+                        if k not in pa or k not in pb or not bits_equal(pa[k], pb[k]))
+        poses = all(bits_equal(x, y) for x, y in zip(wa, wb))
+        print(f"[repro] {backend} mapper, the flagship's {REPRO_FRAMES} frames at 1200x680 twice: "
+              f"params.npz arrays {len(pa)}, those that differ {differ}; every pose equal to "
+              f"the bit: {poses}; wall_s {time.time() - t0:.1f}", flush=True)
+        ok &= not differ and poses
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", action="store_true", help="build and kernel checks only")
@@ -3165,8 +3315,6 @@ def main() -> int:
         print("hierslam_torch not found beside chip_smoke.py: run from a checkout",
               file=sys.stderr)
         return 2
-    # read when cuBLAS makes its handle: deterministic cuBLAS for [tum]
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3199,7 +3347,8 @@ def main() -> int:
     print(f"[build] ptxas: {json.dumps(ptx, sort_keys=True)}; K2/K4 (batch, dynamic smem "
           f"bytes) at P={P}: {json.dumps(dyn)}", flush=True)
     reported = all(any(k.startswith(name) for k in ptx)
-                   for name in ("blend_fwd", "blend_bwd", "stream_fwd", "stream_bwd"))
+                   for name in ("blend_fwd", "blend_bwd", "stream_fwd", "stream_bwd",
+                                "gather_bwd"))
     if not reported or any(v.get("spill_stores", 1) + v.get("spill_loads", 1)
                            for v in ptx.values()):
         fail("a kernel spills registers to local memory (or its ptxas report is missing)")
@@ -3283,10 +3432,11 @@ def main() -> int:
                 fail(f"GPU run with the {backend} mapper disagrees with the CPU reference")
         print(f"[reference] done at {time.time() - t0:.1f} s", flush=True)
         runs = []
-        seen = []
+        seen, gather_seen = [], []
         for i in range(args.repeat):
             good, launches, summ = slam_phase(cfg_path,
-                                              record=seen if recorded is None else None)
+                                              record=seen if recorded is None else None,
+                                              gather_record=gather_seen if i == 0 else None)
             if not good:
                 fail("SLAM phase (flagship as shipped)")
             runs.append(summ)
@@ -3296,6 +3446,12 @@ def main() -> int:
                 rows += r
                 if not good:
                     fail("kernel check on the recorded tracking table")
+            if i == 0:
+                r, good = check_gather("flagship first mapping stream", *gather_seen[0])
+                rows += r
+                del gather_seen[:]
+                if not good:
+                    fail("K5 check on the flagship's first mapping backward")
         if args.repeat > 1:
             for key in ("tracking_iter_ms", "mapping_iter_ms"):
                 vals = [r[key] for r in runs]
@@ -3387,6 +3543,10 @@ def main() -> int:
                  "tile-sharded render on 2 and 4, equal columns vs the single mapper, K1 on the "
                  "last strip's table and K3/K4 on rank 1's stream)")
         print(f"[parallel] done at {time.time() - t0:.1f} s", flush=True)
+        if not repro_phase(cfg_path):
+            fail("repro phase (the flagship's 3-frame run with each mapper twice, equal to the "
+                 "bit)")
+        print(f"[repro] done at {time.time() - t0:.1f} s", flush=True)
     if args.tracking_table and not os.path.isfile(args.tracking_table):
         torch.save(recorded, args.tracking_table)
     by_path = {"cli": eval_launches, "scannet": scannet_launches,

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # source -> extra flags.  stream.cu keeps multiplies and adds apart so that
 # its discrete decisions round as the plain PyTorch version does (see there).
-SOURCES = {"blend.cu": (), "stream.cu": ("-fmad=false",)}
+SOURCES = {"blend.cu": (), "stream.cu": ("-fmad=false",), "gather.cu": ()}
 SMEM_BUDGET = 46 * 1024   # K2's dynamic shared memory per block, under the 48 KB default
 # K4's budget is above 48 KB (the launch asks for it): its shared copies of
 # the projection terms and the float4 features take 52 KB at F = 29 before
@@ -47,7 +47,8 @@ RW = 128                  # pairs per stream row
 TILE_THREADS = 256        # most pixels a tile the kernels take (their launch bounds)
 
 # kernel launches since the last reset (one per launch, nowhere else)
-launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0}
+launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0,
+                 "gather_bwd": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
@@ -140,6 +141,11 @@ def _load(source: str) -> ctypes.CDLL:
             lib.blend_bwd_smem.argtypes = [_I, _I, _I]
             for fn in (lib.blend_fwd, lib.blend_bwd, lib.blend_max_features,
                        lib.blend_fwd_smem, lib.blend_bwd_smem):
+                fn.restype = _I
+        elif source == "gather.cu":
+            lib.gather_bwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+            lib.gather_max_cols.argtypes = []
+            for fn in (lib.gather_bwd, lib.gather_max_cols):
                 fn.restype = _I
         else:
             lib.stream_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
@@ -375,3 +381,37 @@ def stream_bwd(stream, scalars, row_off, ft, last, mpos, gacc, gft, gmed, grid_x
     _raise_on(err, "stream_bwd")
     launch_counts["stream_bwd"] += 1
     return dtab
+
+
+def gather_bwd(cot: torch.Tensor, spos: torch.Tensor, ends: torch.Tensor, n_diff: int,
+               grad_bf16: bool) -> torch.Tensor:
+    """K5, the gather's backward as a segmented sum.  Cotangent rows
+    cot [M, C] f32, the inverse map's positions spos [m] int32 (a prefix
+    under a pair budget) and run ends ends [N] int32 -> grad [N, C], row g
+    the sum from 0, in ascending position order, of rows
+    ``spos[starts[g]:min(ends[g], m)]`` of ``cot`` in their first
+    ``n_diff`` columns (each rounded to bfloat16 first with ``grad_bf16``),
+    0 in the other columns."""
+    if cot.device.type != "cuda":
+        raise ValueError("the CUDA gather kernel takes CUDA tensors only")
+    dev = cot.device
+    M, C = cot.shape
+    N, m = ends.shape[0], spos.shape[0]
+    _check("cot", cot, torch.float32, (M, C), dev)
+    _check("spos", spos, torch.int32, (m,), dev)
+    _check("ends", ends, torch.int32, (N,), dev)
+    lib = _load("gather.cu")
+    if not 0 <= n_diff <= min(C, lib.gather_max_cols()):
+        raise ValueError(f"{n_diff} summed columns of {C}: the kernel sums at most "
+                         f"{lib.gather_max_cols()}")
+    if m > M:
+        raise ValueError(f"{m} positions into {M} cotangent rows")
+    grad = torch.empty((N, C), dtype=torch.float32, device=dev)
+    if N == 0:
+        return grad
+    err = lib.gather_bwd(cot.data_ptr(), spos.data_ptr(), ends.data_ptr(), N, m, C, n_diff,
+                         int(bool(grad_bf16)), grad.data_ptr(),
+                         torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "gather_bwd")
+    launch_counts["gather_bwd"] += 1
+    return grad

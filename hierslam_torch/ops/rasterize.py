@@ -7,8 +7,9 @@ coordinates into buffers the classes share (``render_pallas.blend_classes``,
 one K1 launch a class), which then hold the image in tile order.
 
 Binning may be amortized: pass ``binning_cache=`` (from
-:func:`compute_binning` with a pixel margin) to reuse tile lists across
-optimizer iterations; each slot re-applies the current rect test.
+:func:`compute_binning` with a pixel margin) to reuse tile lists and the
+gather's inverse map across optimizer iterations; each slot re-applies the
+current rect test.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 
 from hierslam_torch import resolve_device
 from hierslam_torch.ops import binning, projection
-from hierslam_torch.ops.gather_vjp import gather_rows
+from hierslam_torch.ops.gather_vjp import InverseMap, build_inverse_map, gather_rows
 from hierslam_torch.ops.render_pallas import blend_classes
 from hierslam_torch.ops.render_xla import tiles_to_image
 
@@ -91,6 +92,7 @@ class RasterConfig:
 
 class Binning(NamedTuple):
     lists: binning.BucketedLists
+    inverse: InverseMap    # the gather's inverse map over _combined_idx(lists)
 
 
 class RenderOutput(NamedTuple):
@@ -156,7 +158,8 @@ def compute_binning(means3D, scales, rotations, camera, config: RasterConfig,
         prep, config.grid(camera.height, camera.width), config, opacities,
         visible_budget=config.visible_budget if compact else 0,
     )
-    return Binning(lists=lists)
+    n_rows = lists.vis_ids.shape[0] if lists.vis_ids is not None else means3D.shape[0]
+    return Binning(lists=lists, inverse=build_inverse_map(_combined_idx(lists), n_rows))
 
 
 def _combined_idx(lists: binning.BucketedLists):
@@ -199,8 +202,9 @@ def rasterize(
     )
     if binning_cache is None:
         lists = _bin_from_prep(pc.stacked(), grid, config, opacities.detach())
+        inverse = None     # gather_rows's backward builds the map of these lists
     else:
-        lists = binning_cache.lists
+        lists, inverse = binning_cache
 
     px, py = pc.x, pc.y
     if means2D_offset is not None:
@@ -214,8 +218,8 @@ def rasterize(
                          pc.valid.int()], 1).float()
     table = torch.cat(main + [rects], 1)         # [N, 7 + F + 5]
     c_main = table.shape[1] - 5
-    g_comb = gather_rows(table, _combined_idx(lists), c_main,
-                         config.grad_pair_budget, config.grad_bf16)
+    g_comb = gather_rows(table, _combined_idx(lists), c_main, config.grad_pair_budget,
+                         config.grad_bf16, inverse)
     k_min = lists.idx[-1].shape[1]
     grid_x = grid[1]
 

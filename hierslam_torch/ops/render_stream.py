@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from hierslam_torch.ops import binning, kernels, projection
-from hierslam_torch.ops.gather_vjp import gather_rows
+from hierslam_torch.ops.gather_vjp import InverseMap, build_inverse_map, gather_rows
 from hierslam_torch.ops.render_xla import blend_terms, pixel_grid, tile_chunks, tiles_to_image
 
 ALPHA_MIN = 1.0 / 255.0
@@ -311,18 +311,20 @@ def blend_stream(stream: torch.Tensor, scalars: torch.Tensor, row_off: torch.Ten
 
 
 class StreamBinning(NamedTuple):
-    """Amortized stream binning of one window frame.  (The JAX package adds
-    an inverse gradient map; the port's gather backward is ``index_add_``.)"""
+    """Amortized stream binning of one window frame: the ragged lists and
+    the gather's inverse map over the table and its sentinel row (whose
+    references sort with the pads and get no run)."""
 
     lists: binning.StreamLists
+    inverse: InverseMap
 
 
 @torch.no_grad()
 def compute_stream_binning(means_cam, scales, rotations, camera, config, active=None,
                            margin_px: float = 0.0, opacities=None,
                            compact: bool = False) -> StreamBinning:
-    """Ragged stream lists at the given camera-frame means (the stream
-    analogue of ``ops/rasterize.compute_binning``)."""
+    """Ragged stream lists and their inverse map at the given camera-frame
+    means (the stream analogue of ``ops/rasterize.compute_binning``)."""
     prep = projection.preprocess(means_cam, scales, rotations, camera, config.tile_shape,
                                  active=active, radius_margin_px=margin_px)
     grid = config.grid(camera.height, camera.width)
@@ -338,7 +340,8 @@ def compute_stream_binning(means_cam, scales, rotations, camera, config, active=
         opacity=opacities if sat else None,
         visible_budget=config.visible_budget if compact else 0,
     )
-    return StreamBinning(lists)
+    n_rows = lists.vis_ids.shape[0] if lists.vis_ids is not None else means_cam.shape[0]
+    return StreamBinning(lists, build_inverse_map(lists.idx, n_rows + 1, num_real=n_rows))
 
 
 def sentinel_row(width: int, device=None) -> torch.Tensor:
@@ -359,7 +362,7 @@ def render_from_table(table: torch.Tensor, b: StreamBinning, w2c: torch.Tensor, 
     c_used = COL_FEAT + n_feat
     table_s = torch.cat([table[:, :c_used], sentinel_row(c_used, table.device)], 0)
     stream = gather_rows(table_s, b.lists.idx, c_used, config.grad_pair_budget,
-                         config.grad_bf16)
+                         config.grad_bf16, b.inverse)
     scalars = make_scalars(w2c.detach(), camera)
     proj_h = camera.proj_height or H
     acc, ft, med = blend_stream(stream, scalars, b.lists.row_off, grid, config.tile_shape,

@@ -49,6 +49,13 @@ def lower_median(x: torch.Tensor) -> torch.Tensor:
     return torch.kthvalue(flat, (flat.shape[0] - 1) // 2 + 1).values
 
 
+def cross_entropy_mean(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of logits [P, C] against int labels [P]
+    (torch.nn.CrossEntropyLoss's default reduction)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, 1, labels.long()[:, None])[:, 0].mean()
+
+
 def cross_entropy_mean_cmajor(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of channel-major logits [C, H, W] against int
     labels [H, W]."""
@@ -88,7 +95,7 @@ def render_packed_stream(table: torch.Tensor, active, binning_cache: rs.StreamBi
     lists = binning_cache.lists
     act = active
     if lists.vis_ids is not None:
-        table = compact_rows(table, lists.vis_ids)
+        table = compact_rows(table, lists.vis_ids, lists.rank_of)
         act = active[lists.vis_ids] if active is not None else None
     if act is not None:
         table = rs.set_logit(table, ~act, rs.SENTINEL_LOGIT)
@@ -149,7 +156,8 @@ def render_gaussians(params: Params, active, cam_quat, cam_trans, camera,
         keys = ["means3D", "unnorm_rotations", "rgb_colors", "logit_opacities", "log_scales"]
         if with_semantic and "semantic" in params:
             keys.append("semantic")
-        params = {k: compact_rows(params[k], vis) for k in keys}
+        rank_of = binning_cache.lists.rank_of
+        params = {k: compact_rows(params[k], vis, rank_of) for k in keys}
         if active is not None:
             active = active[vis]
     means_cam, rots = transforms.transform_to_frame(

@@ -344,7 +344,7 @@ def test_kernel_library_name_follows_source_headers_and_flags(tmp_path, monkeypa
     one.  Pure file hashing: runs without nvcc."""
     from hierslam_torch.ops import kernels
 
-    for name in ("blend.cu", "stream.cu", "reduce.cuh"):
+    for name in (*kernels.SOURCES, "reduce.cuh"):
         (tmp_path / name).write_bytes(open(os.path.join(kernels.CSRC, name), "rb").read())
     monkeypatch.setattr(kernels, "CSRC", str(tmp_path))
     before = {src: kernels.library_path(src) for src in kernels.SOURCES}
