@@ -34,7 +34,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ScanNet tree-large config; errors, the pixels
    whose last committed or median slot or pair differs from the plain
    version's (K1, K3), kernel and plain times (median of CUDA-event timings),
-   roofline bounds;
+   roofline bounds; ``[kernels] cull thin``: K1 against its plain version
+   on tables of thin gaussians (``tools/thin_gaussians.py``: lambda1 /
+   lambda2 to 1e7 at 0-60 degrees, half with the tile at the ellipse's
+   tip; F = 3 and 29), with the (warp, slot) a pixel takes that the plain
+   cull drops (0 allowed) and would have dropped with the box K1 took
+   before, and K3 on the thinnest conics its isotropic rows project to (at
+   the frustum's clamps), each with the smallest (ac - b^2)/ac reached; K5
+   against its plain version, to the bit, on three seeded inputs: shaped as
+   the flagship's first mapping stream and as ``[tum]``'s first
+   ladder-mapping backward, and an adversarial one (a run of 119,000
+   references, longer than a stage of the kernel, cut by a pair budget;
+   90% of the rows empty; C = nd = 135);
 3. reference: a tiny SLAM run (3 frames, 96x64) on the GPU with the
    kernels against the same run on the CPU with the plain versions, once
    with the ladder mapper and once with the stream mapper; the per-frame
@@ -439,9 +450,11 @@ def flip_is_tie(table, ok, grid_x: int, t: int, p: int, out_k, choice_p, tile=No
 
 
 def check_kernels(name: str, table, ok, grid_x: int, reps: int, seed: int = 0,
-                  flips_allowed: int = 0, tile_ids=None, n_tiles: Optional[int] = None):
+                  flips_allowed: int = 0, tile_ids=None, n_tiles: Optional[int] = None,
+                  bwd: bool = True):
     """K1/K2 against their plain versions on a table [T, K, 7+F] with slot
-    mask ``ok``; with ``reps`` > 0 also their times and bounds.  ``seed``
+    mask ``ok``; with ``reps`` > 0 also their times and bounds; with ``bwd``
+    False K1 alone, untimed (returns (None, ok)).  ``seed``
     makes K2's cotangents.  With ``tile_ids`` ([T] int32), row b of the table
     is tile ``tile_ids[b]`` of a grid of ``n_tiles`` (a ladder class as the
     main path launches it: its true pixels, its rows of the buffers the
@@ -500,6 +513,8 @@ def check_kernels(name: str, table, ok, grid_x: int, reps: int, seed: int = 0,
                                     choice_p[b, p], tile=(table[b:b + 1], ok[b:b + 1]))
             print(f"[kernels] {name} K1: {said}", flush=True)
             fwd_ok &= tie
+    if not bwd:
+        return None, fwd_ok
 
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     gacc = torch.randn(out[0].shape, generator=g, device=dev)
@@ -1013,6 +1028,10 @@ def check_gather(name: str, cot, spos, ends, n_diff: int, grad_bf16: bool, reps:
     out = torch.zeros((N, n_diff), device=dev)
     lib_ms = cuda_ms(lambda: out.index_add_(0, rows, src), reps)
     det_ms = cuda_ms(lambda: out.index_put_((rows,), src, accumulate=True), reps)
+    # the random row reads alone: the referenced rows' summed columns
+    # gathered in K5's order (and written out in that order)
+    cols = cot[:, :n_diff].contiguous()
+    sel_ms = cuda_ms(lambda: cols.index_select(0, pos), reps)
     # each referenced cotangent row's summed columns, its position and every
     # run end read once; every element of grad written once; one add a term
     bb, bb_by = bound(refs * (n_diff + 1) * 4 + N * 4 + N * C * 4, refs * n_diff)
@@ -1021,14 +1040,181 @@ def check_gather(name: str, cot, spos, ends, n_diff: int, grad_bf16: bool, reps:
           f"references, longest run {int(n_ref.max())}, C={C}, summed columns {n_diff}, "
           f"bf16 {grad_bf16}; K5 {ms:.4f} ms (bound {bb:.4f} ms by {bb_by}, "
           f"{100 * bb / ms:.1f}%); plain {plain_ms:.3f} ms; index_add_ with the float order "
-          f"free {lib_ms:.4f} ms, deterministic (index_put_ accumulate) {det_ms:.4f} ms",
+          f"free {lib_ms:.4f} ms, deterministic (index_put_ accumulate) {det_ms:.4f} ms; "
+          f"index_select of the referenced rows' summed columns, in K5's order, {sel_ms:.4f} ms",
           flush=True)
     row = dict(kernel="gather_bwd", name=f"gather_bwd_K5[{name}]", route="cuda",
                source="hierslam_torch/csrc/gather.cu",
                replaces="hierslam_tpu/ops/gather_vjp.py:218", ms=ms, plain_ms=plain_ms,
                bound_ms=bb, bound_by=bb_by, library_ms=lib_ms,
-               library_deterministic_ms=det_ms, max_abs_err=err)
+               library_deterministic_ms=det_ms, index_select_ms=sel_ms, max_abs_err=err)
     return [row], same
+
+
+# K5's seeded inputs: rows, positions, each row's references binomial(9, p),
+# columns, summed columns, bf16 terms; the first two shaped as the run's
+# recorded inputs ([slam stream], [tum]), the third the adversarial one
+GATHER_SEEDED = (
+    ("flagship-shaped", dict(n=1_572_865, n_pos=3_432_576, p=0.229, c=34, nd=34, bf16=True)),
+    ("tum-shaped", dict(n=1_048_576, n_pos=1_269_760, p=0.0915, c=15, nd=10, bf16=True)),
+    ("adversarial", dict(n=200_000, n_pos=240_000, p=0.5, c=135, nd=135, bf16=False,
+                         empty=0.9, long_run=120_000, cut=1_000)),
+)
+
+
+def seeded_gather(seed: int, n: int, n_pos: int, p: float, c: int, nd: int, bf16: bool,
+                  empty: float = 0.0, long_run: int = 0, cut: int = 0):
+    """K5's inputs from a seed, as ``check_gather`` takes them: ``n`` rows,
+    each with binomial(9, ``p``) references (a share ``empty`` of the rows
+    with none; with ``long_run``, row n // 3 with that many) at random
+    positions among ``n_pos`` (the rest pads), an inverse map built by the
+    port, normal cotangent rows [n_pos, c]; with ``cut``, the positions end
+    ``cut`` references before the long run does (a pair budget inside a
+    run)."""
+    import numpy as np
+    import torch
+
+    from hierslam_torch.ops import gather_vjp
+
+    rng = np.random.default_rng(seed)
+    counts = rng.binomial(9, p, n)
+    counts[rng.uniform(size=n) < empty] = 0
+    if long_run:
+        counts[n // 3] = long_run
+    refs = int(counts.sum())
+    flat = np.full(max(n_pos, refs), -1, np.int64)
+    flat[:refs] = np.repeat(np.arange(n), counts)
+    rng.shuffle(flat)
+    dev = torch.device("cuda")
+    inv = gather_vjp.build_inverse_map(torch.as_tensor(flat, device=dev), n)
+    m = int(inv.ends[n // 3]) - cut if long_run and cut else inv.spos.shape[0]
+    cot = torch.randn((flat.shape[0], c), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(seed))
+    return cot, inv.spos[:m], inv.ends, nd, bf16
+
+
+THIN = dict(T=128, K=512, grid_x=16)   # [kernels] cull thin: 16 x 8 tiles of 512 slots
+
+
+def thin_cull_counts(table, ok, grid_x: int):
+    """On a ladder table: the (warp, slot) in which a pixel takes the slot
+    (``render_xla.blend_terms``), how many of them the plain cull drops with
+    its box from ``render_xla.conic_cov_diag`` and with the box K1 took
+    before (the conic's float32 determinant, no allowance for the blend's
+    rounding of q), and the slots some pixel takes [T, K]."""
+    import torch
+
+    from hierslam_torch.ops import render_xla as rx
+
+    T, K, _ = table.shape
+    dev = table.device
+    tp = rx.thread_pixels(TILE).to(dev)
+    n_taken, missed, taken_slot = 0, {"now": 0, "before": 0}, []
+    with torch.no_grad():
+        for lo, hi in rx.tile_chunks(T, P, K):
+            tab, okc = table[lo:hi], ok[lo:hi]
+            tids = torch.arange(lo, hi, device=dev)
+            px, py = rx.pixel_grid(tids, TILE, grid_x)
+            contrib = rx.blend_terms(tab, okc, px, py)[4]
+            taken = contrib[:, tp].reshape(hi - lo, P // 32, 32, K).any(2)
+            x0 = ((tids % grid_x) * TILE[1]).float()[:, None]
+            y0 = ((tids // grid_x) * TILE[0]).float()[:, None]
+            a, b, c = tab[..., 2], tab[..., 3], tab[..., 4]
+            det = a * c - b * b
+            inf = torch.full_like(det, float("inf"))
+            before = (torch.where(det > 0, c / det, inf), torch.where(det > 0, a / det, inf))
+            for key, box in (("now", rx.conic_cov_diag(a, b, c)), ("before", before)):
+                live = rx.cull_mask(tab[..., 0], tab[..., 1], *box, tab[..., 5], x0, y0, TILE)
+                missed[key] += int((taken & ~(live & okc[..., None]).permute(0, 2, 1)).sum())
+            n_taken += int(taken.sum())
+            taken_slot.append(taken.any(1))
+    return n_taken, missed["now"], missed["before"], torch.cat(taken_slot)
+
+
+def thin_stream_inputs(cfg_path: str, n: int = 150_000, seed: int = 0, W: int = 1200,
+                       H: int = 680, f: float = 600.0):
+    """A pair stream of raw rows as thin as K3's rows project: a stream row
+    is isotropic in 3-D (one log-scale column), so its 2-D covariance
+    s^2 J J^T + 0.3 I is thinnest where the projection is most oblique, at
+    the clamps of the view frustum (|x / z| <= ``limx``, |y / z| <=
+    ``limy``), and there no thinner than eigenvalues 1 : 1 + limx^2 +
+    limy^2 (for fx = fy).  Means from a seed over 1.6 times the image on
+    each axis (past its edges, where the clamp holds), 0.3-3 m deep,
+    footprints of 0.5-16 px, binned at the identity pose with ``cfg_path``'s
+    raster config.  Returns ``stream_inputs``'s tuple and the smallest
+    (ac - b^2)/ac of a row in front of the camera, measured and the
+    frustum's floor."""
+    import numpy as np
+    import torch
+
+    from hierslam_torch.config import load_config, raster_config
+    from hierslam_torch.core.camera import setup_camera
+    from hierslam_torch.ops import render_stream as rs
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    cx, cy = (W - 1) / 2, (H - 1) / 2
+    u = rng.uniform(-0.3 * W, 1.3 * W, n)
+    v = rng.uniform(-0.3 * H, 1.3 * H, n)
+    z = rng.uniform(0.3, 3.0, n)
+    r_px = np.exp(rng.uniform(np.log(0.5), np.log(16.0), n))
+    table = np.concatenate([np.stack([(u - cx) * z / f, (v - cy) * z / f, z,
+                                      np.log(r_px * z / f), rng.uniform(-4, 6, n)], 1),
+                            rng.uniform(0, 1, (n, 3))], 1)
+    t = torch.as_tensor(table, dtype=torch.float32, device=dev)
+    camera = setup_camera(W, H, np.array([[f, 0, cx], [0, f, cy], [0, 0, 1]]), np.eye(4))
+    rc = raster_config(load_config(cfg_path))
+    rot = torch.zeros((n, 4), device=dev)
+    rot[:, 0] = 1.0
+    b = rs.compute_stream_binning(t[:, :3], torch.exp(t[:, 3:4]), rot, camera, rc,
+                                  margin_px=4.0, opacities=torch.sigmoid(t[:, 4]))
+    stream = torch.cat([t, rs.sentinel_row(t.shape[1], dev)], 0)[b.lists.idx].contiguous()
+    sc = rs.make_scalars(torch.eye(4, device=dev), camera)
+    with torch.no_grad():
+        q = rs.project_pairs(t, sc, 0.0, 0.0, float(W), float(H), TILE)
+    a, bb, c = (q[k].double() for k in ("ca", "cb", "cc"))
+    front = q["dep"] > 0.2
+    ratio = float(((a * c - bb * bb) / (a * c))[front].min())
+    lam = 1.0 + float(sc[26]) ** 2 + float(sc[27]) ** 2
+    return (stream, sc, b.lists, b.lists.idx == n, rc.grid(H, W), (H, W)), ratio, \
+        4 * lam / (1 + lam) ** 2
+
+
+def cull_thin_phase(cfg_path: str) -> bool:
+    """``[kernels] cull thin``: the footprint cull on near-singular conics.
+    K1 against its plain version (``check_kernels``'s tolerances and tie
+    rule, forward only) on a table of thin gaussians from
+    ``tools/thin_gaussians.py`` at F = 3 and 29, half of them with the tile
+    at a tip of the ellipse, with the plain cull's dropped (warp, slot) now
+    and with the box K1 took before; K3 against its plain version on the
+    thinnest stream rows (``thin_stream_inputs``).  Prints the smallest
+    (ac - b^2)/ac reached and the pixels beyond tolerance."""
+    import torch
+
+    thin = load_module("thin_gaussians", os.path.join(ROOT, "tools", "thin_gaussians.py"))
+    dev = torch.device("cuda")
+    T, K, gx = THIN["T"], THIN["K"], THIN["grid_x"]
+    ok = True
+    for F in (3, 29):
+        tab_np, ok_np = thin.thin_table(40 + F, T, K, F, gx, TILE)
+        ratio = thin.det_ratio(tab_np)
+        table, slot_ok = torch.as_tensor(tab_np, device=dev), torch.as_tensor(ok_np, device=dev)
+        n_taken, n_now, n_before, taken_slot = thin_cull_counts(table, slot_ok, gx)
+        name = f"cull thin T={T} K={K} F={F}"
+        print(f"[kernels] {name}: lambda1/lambda2 to 1e7 at 0-60 degrees, half the slots with "
+              f"the tile at a tip; smallest (ac - b^2)/ac {ratio.min():.3e}, of a slot a pixel "
+              f"takes {ratio[taken_slot.cpu().numpy()].min():.3e}; (warp, slot) taken "
+              f"{n_taken}, dropped by the plain cull {n_now} (allowed 0), by the box K1 took "
+              f"before {n_before}", flush=True)
+        ok &= n_now == 0
+        ok &= check_kernels(name, table, slot_ok, gx, 0, flips_allowed=2, bwd=False)[1]
+    (stream, sc, lists, pad, grid, img), ratio, floor = thin_stream_inputs(cfg_path)
+    name = f"cull thin stream R={stream.shape[0]} F=3"
+    print(f"[kernels] {name}: isotropic rows over the frustum's clamps; smallest (ac - b^2)/ac "
+          f"of a row in front {ratio:.4f} (the frustum's floor {floor:.4f}); n_refs "
+          f"{int(lists.n_refs)} n_dropped {int(lists.n_dropped)}", flush=True)
+    ok &= check_stream(name, stream, sc, lists.row_off, pad, grid, 3, img, 0, flips_allowed=2)[1]
+    return ok
 
 
 def tracking_table(cfg_path: str):
@@ -3395,6 +3581,13 @@ def main() -> int:
         row["path"] = "scannet"
     rows += r + r2
     ok &= good and good2
+    ok &= cull_thin_phase(cfg_path)
+    # K5 on seeded inputs: the recorded inputs' shapes, and the adversarial
+    # one (a run longer than the staging, most rows empty, odd C, nd = 135)
+    for i, (name, shape) in enumerate(GATHER_SEEDED):
+        r, good = check_gather(name, *seeded_gather(20 + i, **shape))
+        rows += r
+        ok &= good
     print(f"[kernels] checks on seeded inputs done at {time.time() - t0:.1f} s", flush=True)
 
     def check_recorded(recorded):

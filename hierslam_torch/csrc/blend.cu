@@ -27,8 +27,8 @@
 // - slots are staged in batches as packed records, two float4 a slot
 //   (x y a b | c opacity depth mask), with the slot mask folded in and the
 //   features in a float4-aligned array that only a commit reads.  The
-//   lane that stages a slot computes, with one division, the warps its
-//   footprint can reach (cull.cuh), and a warp visits only the slots that
+//   lane that stages a slot computes the warps its footprint can reach
+//   (cull.cuh), and a warp visits only the slots that
 //   hold its bit, found with one ballot per 32 slots (fwd.cuh
 //   walk_records): a masked slot or one that misses the warp costs no load
 //   and no branch;
@@ -117,13 +117,9 @@ __device__ __forceinline__ void stage_pack(const float* s_raw, float4* rec4, flo
     if (lane < nv && okv) {
       const float* g = s_raw + j * C;
       const float a = g[2], b = g[3], c = g[4], opa = g[5];
-      const float det = a * c - b * b;
-      const float inv = 1.f / det;
-      // not a positive-definite conic (or a NaN): live for every warp
-      const bool pd = det > 0.f;
-      const float inf = __int_as_float(0x7f800000);
-      const unsigned mask = hsl::warp_mask(g[0], g[1], pd ? c * inv : inf, pd ? a * inv : inf,
-                                           opa, tile_x0, tile_y0, tw, th);
+      float cxx, cyy;  // infinite (live for every warp) without a box
+      hsl::conic_box_diag(a, b, c, cxx, cyy);
+      const unsigned mask = hsl::warp_mask(g[0], g[1], cxx, cyy, opa, tile_x0, tile_y0, tw, th);
       q0 = make_float4(g[0], g[1], a, b);
       q1 = make_float4(c, opa, g[6], __uint_as_float(mask));
     }

@@ -9,10 +9,23 @@
 // sqrt(2 tau cxx) and sqrt(2 tau cyy), cxx = c / (ac - b^2) and cyy = a /
 // (ac - b^2) the diagonal of the 2-D covariance.  A warp is live for the
 // pair when that box, widened, meets the rectangle of the warp's pixels.
-// The widening keeps the test conservative against float rounding of q, of
-// tau and of the box: 1e-3 on tau, then 1% and half a pixel on each
+// The widening keeps the test conservative against float rounding of tau
+// and of the box: 1e-3 on tau, then 1% and half a pixel on each
 // half-width.  The mask may keep a pair no pixel takes; it never drops one
 // a pixel takes.  A NaN or an infinity anywhere gives "live for every warp".
+//
+// K1 reads a conic, not a covariance, and takes the box's diagonal from it
+// (conic_box_diag).  The blend rounds q in float32 (fwd.cuh blend_power, dx
+// and dy included): its error is at most 5u (a dx^2 + c dy^2 + 2|b dx dy|)
+// <= 5u m |v|^2, u = 2^-24, m = max(a, c) + |b|.  Far from the mean of a
+// thin gaussian that is more than the 1% widening covers: a tile at the tip
+// of an ellipse with (ac - b^2)/ac below ~1e-5 lost pixels that took the
+// pair.  So the box is that of the conic less eta = 8u m on its diagonal,
+// which holds every v the rounded q can take, with its determinant in
+// Kahan's form (one rounding where a c - b b cancels); a conic for which
+// that is not positive definite, (ac - b^2)/ac below ~2e-6 at 45 degrees,
+// is live for every warp.  K3 reads the covariance before its inversion, of
+// rows that are isotropic in 3-D, and needs neither.
 // ops/render_xla.py holds the plain version (warp_rects, cull_mask).
 //
 // Layout: a tile is a multiple of 8 x 4 pixels (the wrappers raise on any
@@ -32,6 +45,7 @@ constexpr float CULL_TAU = 1e-3f;   // added to tau
 constexpr float CULL_REL = 1.01f;   // factor on each half-width
 constexpr float CULL_PX = 0.5f;     // added to each half-width, pixels
 constexpr float CULL_WILD = 1e9f;   // a box edge beyond this (or NaN) is live everywhere
+constexpr float CULL_Q_ROUND = 8.f * 5.9604645e-8f;  // 8u: q's rounding, on the conic's diagonal
 
 // Whether a th x tw tile divides into 8 x 4 blocks.
 __host__ __device__ __forceinline__ bool block_layout(int tw, int th) {
@@ -43,6 +57,21 @@ __device__ __forceinline__ void thread_pixel(int p, int tw, int& x, int& y) {
   const int w = p >> 5, l = p & 31, bw = tw >> 3;
   x = 8 * (w % bw) + (l & 7);
   y = 4 * (w / bw) + (l >> 3);
+}
+
+// Diagonal (cxx, cyy) of the covariance whose box holds every pixel the
+// blend's float32 q of conic (a, b, c) can take (see the top of the file);
+// infinite where there is no such box.
+__device__ __forceinline__ void conic_box_diag(float a, float b, float c, float& cxx,
+                                               float& cyy) {
+  const float eta = CULL_Q_ROUND * (fmaxf(a, c) + fabsf(b));  // a NaN stays a NaN
+  const float a2 = a - eta, c2 = c - eta;
+  const float w = b * b;
+  const float det = fmaf(a2, c2, -w) + fmaf(-b, b, w);  // Kahan: w's rounding put back
+  const bool pd = det > 0.f && a2 > 0.f;
+  const float inf = __int_as_float(0x7f800000);
+  cxx = pd ? c2 / det : inf;
+  cyy = pd ? a2 / det : inf;
 }
 
 // Warps of a tile (bits of an unsigned, 32 pixels each) that the footprint

@@ -401,9 +401,9 @@ def gather_bwd(cot: torch.Tensor, spos: torch.Tensor, ends: torch.Tensor, n_diff
     _check("spos", spos, torch.int32, (m,), dev)
     _check("ends", ends, torch.int32, (N,), dev)
     lib = _load("gather.cu")
-    if not 0 <= n_diff <= min(C, lib.gather_max_cols()):
-        raise ValueError(f"{n_diff} summed columns of {C}: the kernel sums at most "
-                         f"{lib.gather_max_cols()}")
+    if C > lib.gather_max_cols() or not 0 <= n_diff <= C:
+        raise ValueError(f"{n_diff} summed columns of {C}: the kernel takes rows of at most "
+                         f"{lib.gather_max_cols()} columns")
     if m > M:
         raise ValueError(f"{m} positions into {M} cotangent rows")
     grad = torch.empty((N, C), dtype=torch.float32, device=dev)

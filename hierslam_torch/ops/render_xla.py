@@ -42,6 +42,8 @@ CULL_TAU = 1e-3
 CULL_REL = 1.01
 CULL_PX = 0.5
 CULL_WILD = 1e9
+# q's float32 rounding, taken off the conic's diagonal: 8u, u = 2^-24
+CULL_Q_ROUND = 8.0 * 2.0 ** -24
 
 
 def _blocks_wide(tile_shape) -> int:
@@ -75,12 +77,19 @@ def warp_rects(tile_shape) -> torch.Tensor:
 
 
 def conic_cov_diag(ca: torch.Tensor, cb: torch.Tensor, cc: torch.Tensor):
-    """Diagonal (cxx, cyy) of the covariance a conic inverts; infinite
-    (live for every warp) where the conic is not positive definite."""
-    det = ca * cc - cb * cb
+    """Plain version of ``csrc/cull.cuh::conic_box_diag``: the diagonal
+    (cxx, cyy) of the covariance whose box holds every pixel that the
+    blend's float32 quadratic form of the conic can take.  The conic loses
+    ``CULL_Q_ROUND (max(a, c) + |b|)`` on its diagonal, which bounds that
+    form's rounding, and is inverted with its determinant in float64 (the
+    kernel: Kahan's form).  Infinite (live for every warp) where what is
+    left is not positive definite."""
+    eta = CULL_Q_ROUND * (torch.maximum(ca, cc) + cb.abs())
+    a2, c2 = ca - eta, cc - eta
+    det = (a2.double() * c2.double() - cb.double() * cb.double()).to(ca.dtype)
     inf = torch.full_like(det, float("inf"))
-    pd = det > 0.0
-    return torch.where(pd, cc / det, inf), torch.where(pd, ca / det, inf)
+    pd = (det > 0.0) & (a2 > 0.0)
+    return torch.where(pd, c2 / det, inf), torch.where(pd, a2 / det, inf)
 
 
 def cull_mask(x, y, cxx, cyy, opa, tile_x0, tile_y0, tile_shape) -> torch.Tensor:

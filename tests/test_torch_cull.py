@@ -22,6 +22,9 @@ with the cases the cull must survive: means on and beyond tile edges,
 opacities one float on either side of 1/255, alphas that clamp at 0.99,
 conics that are not positive definite, a NaN and an infinity.
 """
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +37,11 @@ from hierslam_torch.ops import render_xla as rx
 from hierslam_torch.ops.rasterize import RasterConfig
 
 torch.set_num_threads(1)
+
+_spec = importlib.util.spec_from_file_location(
+    "thin_gaussians", os.path.join(os.path.dirname(__file__), "..", "tools", "thin_gaussians.py"))
+thin = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(thin)
 
 ALPHA_MIN = np.float32(1.0) / np.float32(255.0)
 
@@ -122,6 +130,60 @@ def test_cull_keeps_every_taken_slot(F, tile_shape):
               f"{n} (warp, slot); {100 * float(taken.sum()) / n:.1f}% are taken")
     # it is a cull: small splats miss most warps, and more than large ones do
     assert dropped[0] > 0.4 and dropped[0] > dropped[1]
+
+
+def thin_live_and_taken(tab, ok, grid_x, tile_shape):
+    """[T, nw, K] (live, taken) of a table: the plain cull of each slot
+    from its conic, and the warps in which a pixel takes it."""
+    T = tab.shape[0]
+    th, tw = tile_shape
+    tids = torch.arange(T)
+    px, py = rx.pixel_grid(tids, tile_shape, grid_x)
+    taken = taken_by_warp(rx.blend_terms(tab, ok, px, py)[4], tile_shape)
+    cxx, cyy = rx.conic_cov_diag(tab[..., 2], tab[..., 3], tab[..., 4])
+    x0 = ((tids % grid_x) * tw).float()[:, None]
+    y0 = ((tids // grid_x) * th).float()[:, None]
+    live = rx.cull_mask(tab[..., 0], tab[..., 1], cxx, cyy, tab[..., 5], x0, y0, tile_shape)
+    return (live & ok[..., None]).permute(0, 2, 1), taken
+
+
+@pytest.mark.parametrize("tile_shape", [(16, 16), (4, 32)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cull_keeps_every_taken_slot_of_thin_gaussians(seed, tile_shape):
+    """Thin gaussians (lambda1 / lambda2 to 1e7, at 0-60 degrees), half of
+    them with a tile at the tip of the ellipse (``tools/thin_gaussians.py``):
+    there the float32 quadratic form of the blend rounds far more than the
+    box's 1% widening covers, and a cull from the conic as it stands drops
+    hundreds of taken (warp, slot) in such a table."""
+    grid_x, T, K = 8, 32, 256
+    tab, ok = (torch.as_tensor(x) for x in thin.thin_table(200 + seed, T, K, 3, grid_x,
+                                                             tile_shape))
+    live, taken = thin_live_and_taken(tab, ok, grid_x, tile_shape)
+    missed = taken & ~live
+    assert not missed.any(), f"cull dropped {int(missed.sum())} taken (warp, slot)"
+    ratio = thin.det_ratio(tab.numpy())
+    taken_slot = taken.any(1).numpy()
+    n = int(ok.sum()) * live.shape[1]
+    # the box from the conic as it stands, its determinant in float32 (the
+    # cull before the allowance) and in float64: what each would drop
+    drops = []
+    for dt in (torch.float32, torch.float64):
+        a, b, c = (tab[..., i].to(dt) for i in (2, 3, 4))
+        d = a * c - b * b
+        box = [torch.where(d > 0, x / d, torch.full_like(d, float("inf"))).float() for x in (c, a)]
+        th, tw = tile_shape
+        tids = torch.arange(T)
+        x0, y0 = ((tids % grid_x) * tw).float()[:, None], ((tids // grid_x) * th).float()[:, None]
+        old = rx.cull_mask(tab[..., 0], tab[..., 1], *box, tab[..., 5], x0, y0, tile_shape)
+        drops.append(int((taken & ~(old & ok[..., None]).permute(0, 2, 1)).sum()))
+    print(f"thin tile {tile_shape} seed {seed}: smallest (ac - b^2)/ac {ratio.min():.3e}, of a "
+          f"taken slot {ratio[taken_slot].min():.3e}; cull drops {100 * (1 - float(live.sum()) / n):.1f}% "
+          f"of {n} (warp, slot); {100 * float(taken.sum()) / n:.1f}% are taken; a box with no "
+          f"allowance for q's rounding would drop {drops[0]} taken (determinant in float32), "
+          f"{drops[1]} (in float64)")
+    # the table reaches the conics whose tips dropped pixels, and the tips are taken
+    assert ratio[taken_slot].min() < 1e-6
+    assert int(taken.sum()) > 1000 and float(live.sum()) < live.numel()
 
 
 def small_stream(F, seed=3, n=400, W=64, H=48):
@@ -230,3 +292,23 @@ def test_k1_on_the_edge_table_agrees_with_the_plain_blend(F):
         assert float((acc - acc_p).abs().max()) <= 1e-3
         assert float((ft - ft_p).abs().max()) <= 1e-4
         assert float((med - med_p).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [3, 29])
+def test_k1_on_thin_gaussians_agrees_with_the_plain_blend(F):
+    """csrc/cull.cuh's ``conic_box_diag`` through K1: on a table of thin
+    gaussians with tiles at their tips, the kernel's outputs are the plain
+    blend's (the tolerances of the edge-table test), which a dropped (warp,
+    slot) would break."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from hierslam_torch.ops import kernels, render_pallas
+
+    tile_shape, grid_x, T, K = (16, 16), 8, 64, 512
+    tab, ok = (torch.as_tensor(x).cuda() for x in thin.thin_table(300 + F, T, K, F, grid_x))
+    acc, ft, med, _, _ = kernels.blend_fwd(tab, ok, grid_x, tile_shape)
+    acc_p, ft_p, med_p = render_pallas.blend_fwd_plain(tab, ok, grid_x, tile_shape)
+    assert float((acc - acc_p).abs().max()) <= 1e-3
+    assert float((ft - ft_p).abs().max()) <= 1e-4
+    assert float((med - med_p).abs().max()) <= 1e-4

@@ -13,6 +13,13 @@ Inputs are made from numpy seeds.  Tolerances:
   of its log2(16) = 4 doubling passes rounds a partial sum to half an ulp,
   2^-9 of at most that sum (the first rounding, of each term, is the same
   on both sides);
+* the same bounds on the harder layouts of :data:`HARD` (one run of
+  100,000 references, 90% empty rows, a budget inside a run, nd = 1, odd
+  nd = C, nd = C = 135), in float32 only for the long run: JAX's map packs
+  its doubling passes' run masks in int8 (runs up to 256 references), so
+  that run goes through JAX's ``_gather_bwd`` with the same bit-planes in
+  int32 (16 or 17 passes), where ``BF16_TOL`` would no longer be the
+  file's;
 * against the earlier one-``index_add_`` backward (kept here as
   :func:`index_add_backward`) and between K5 and its plain version: equal
   to the bit, since both add each run in ascending position order;
@@ -200,6 +207,92 @@ def test_gather_backward_equals_index_add_at_scale(bf16):
         assert torch.equal(gt, gp)
 
 
+# harder layouts: rows, references a row in 0..8 (a share ``empty`` none;
+# with ``long``, row n // 3 that many), columns, summed columns (0: all), a
+# pair budget that ends ``cut`` references inside the long run, bf16 cases
+HARD = {
+    "long_run": dict(n=64, long=100_000, c=3, n_diff=0),
+    "long_run_cut": dict(n=64, long=100_000, c=3, n_diff=0, cut=50_000),
+    "empty90": dict(n=3000, empty=0.9, c=6, n_diff=0),
+    "nd1": dict(n=800, c=6, n_diff=1),
+    "odd_nd_eq_c": dict(n=800, c=7, n_diff=7),
+    "nd135": dict(n=300, c=135, n_diff=135),
+}
+HARD_CASES = [(k, bf16) for k, v in HARD.items() for bf16 in (False, True)
+              if not (bf16 and v.get("long"))]
+
+
+def hard_layout(n, c, n_diff, empty=0.0, long=0, cut=0, seed=0):
+    """-> (idx [L / 128, 128] with -1 pads, cotangent rows [L, c], the pair
+    budget: ``cut`` references into the long run, else 0)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 9, n)
+    counts[rng.uniform(size=n) < empty] = 0
+    if long:
+        counts[n // 3] = long
+    refs = int(counts.sum())
+    flat = np.full(-(-(refs + refs // 10 + 7) // 128) * 128, -1, np.int64)
+    flat[:refs] = np.repeat(np.arange(n), counts)
+    rng.shuffle(flat)
+    cot = rng.normal(size=(flat.size, c)).astype(np.float32)
+    budget = int(counts[:n // 3].sum()) + cut if cut else 0
+    return flat.reshape(-1, 128), cot, budget
+
+
+def jax_backward_wide(idx, n, cot, n_diff, budget, max_run):
+    """JAX's ``_gather_bwd`` on the map of ``jg.build_inverse_map`` with its
+    run masks rebuilt in int32 (``build_inverse_map`` packs them in int8:
+    8 passes)."""
+    jinv = jg.build_inverse_map(jnp.asarray(idx, jnp.int32), n)
+    flat = idx.reshape(-1)
+    skey = np.where(flat < 0, n, flat)[np.asarray(jinv.spos)]
+    masks = np.zeros(skey.shape, np.int32)
+    s, p = 1, 0
+    while s < max_run:
+        masks[:-s] |= (skey[:-s] == skey[s:]).astype(np.int32) << p
+        s, p = s * 2, p + 1
+    g = jnp.asarray(cot.reshape(idx.shape + (cot.shape[1],)))
+    res = (jinv.spos, jinv.ends, jnp.asarray(masks))
+    return np.asarray(jg._gather_bwd(max_run, n_diff, budget, False, res, g)[0])
+
+
+@pytest.mark.parametrize("case,bf16", HARD_CASES, ids=[f"{k}-{'bf16' if b else 'f32'}"
+                                                        for k, b in HARD_CASES])
+def test_gather_backward_matches_jax_on_hard_layouts(case, bf16):
+    spec = HARD[case]
+    n, c, n_diff = spec["n"], spec["c"], spec["n_diff"]
+    idx, cot, pb = hard_layout(seed=13, **spec)
+    arr = np.random.default_rng(14).normal(size=(n, c)).astype(np.float32)
+    if spec.get("long"):   # passes enough for the longest run the budget keeps
+        longest = spec.get("cut") or spec["long"]
+        gj = jax_backward_wide(idx, n, cot, n_diff, pb, 1 << int(np.ceil(np.log2(longest + 1))))
+    else:
+        jinv = jg.build_inverse_map(jnp.asarray(idx, jnp.int32), n, MAX_RUN)
+        _, vjp = jax.vjp(lambda a: jg.gather_rows(a, jnp.asarray(idx, jnp.int32), jinv.spos,
+                                                  jinv.ends, jinv.run_masks, MAX_RUN, n_diff,
+                                                  pb, bf16), jnp.asarray(arr))
+        gj = np.asarray(vjp(jnp.asarray(cot.reshape(idx.shape + (c,))))[0])
+    inv = port_map(idx, n, n)
+    gt = port_backward(arr, idx, cot.reshape(idx.shape + (c,)), n_diff, pb, bf16, inv).numpy()
+    nd = c if n_diff == 0 else n_diff
+    routed = routed_abs(idx, cot, n, nd, pb)
+    err = np.abs(gt - gj) / (1.0 + routed)
+    assert err.max() <= (BF16_TOL if bf16 else 1e-6), err.max()
+    assert (gt[:, nd:] == 0).all()
+    assert (gt[routed == 0] == 0).all()
+    ends = inv.ends.numpy()
+    runs = np.diff(ends, prepend=0)
+    if spec.get("long"):
+        assert runs.max() >= 100_000
+    if spec.get("cut"):   # the long row keeps only the references before the budget
+        row = n // 3
+        kept = min(pb, ends[row]) - ends[row - 1]
+        assert 0 < kept < runs[row]
+        assert (gt[row + 1:] == 0).all()
+    if spec.get("empty"):
+        assert (runs == 0).mean() > 0.85
+
+
 def test_gather_rows_makes_its_own_map():
     idx, rows, real = layout("ladder", 8)
     rng = np.random.default_rng(8)
@@ -314,3 +407,27 @@ def test_gather_kernel_on_card(bf16):
         first = kernels.gather_bwd(*args).cpu()
         second = kernels.gather_bwd(*args).cpu()
         assert torch.equal(first, want) and torch.equal(second, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(HARD))
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_gather_kernel_on_card_hard_layouts(case, bf16):
+    """K5 on the harder layouts (a run longer than its staging, most rows
+    empty, a budget inside a run, nd = 1, odd nd = C, nd = C = 135): two
+    launches, each equal to the bit to the plain version on a CPU copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from hierslam_torch.ops import kernels
+
+    spec = HARD[case]
+    idx, cot, pb = hard_layout(seed=15, **spec)
+    n, c = spec["n"], spec["c"]
+    nd = c if spec["n_diff"] == 0 else spec["n_diff"]
+    inv = port_map(idx, n, n)
+    m = pb or inv.spos.shape[0]
+    cot = torch.as_tensor(cot)
+    want = tg.gather_bwd_plain(cot, inv.spos[:m], inv.ends, nd, bf16)
+    args = (cot.cuda(), inv.spos[:m].cuda(), inv.ends.cuda(), nd, bf16)
+    assert torch.equal(kernels.gather_bwd(*args).cpu(), want)
+    assert torch.equal(kernels.gather_bwd(*args).cpu(), want)
