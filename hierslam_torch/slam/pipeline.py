@@ -19,7 +19,7 @@ checkpoint) with a loader thread ahead of it; ``run_slam`` adds the final
 eval.  With ``parallel.map_data_devices = D > 1`` the mapping phases run
 keyframe data-parallel over a mesh of D ranks (``parallel/shard.py``).
 ``config["profile"]`` traces the frames it lists with ``torch.profiler``
-(``run``); ``use_wandb`` sends the metrics and progress panels to wandb
+(``run``), each phase of ``step`` a named span in the trace; ``use_wandb`` sends the metrics and progress panels to wandb
 where it imports (``utils/logging.RunLogger``).
 """
 from __future__ import annotations
@@ -49,9 +49,28 @@ from hierslam_torch.slam.losses import LossConfig, mlp_init
 from hierslam_torch.slam.mapping import PruneConfig, make_densifier, make_mapper
 from hierslam_torch.slam.tracking import apply_gt_pose, est_w2c, make_tracker, propagate_pose
 from hierslam_torch.utils import io as uio
+from hierslam_torch.utils import trace
 from hierslam_torch.utils.convert import from_jax_numpy
 from hierslam_torch.utils.logging import RunLogger, plot_metrics
 from hierslam_torch.utils.prefetch import Prefetcher
+
+# the stream mapper's per-phase counters (``losses`` keys, each expanded to
+# [num_iters]) and the ``stats`` they are summed into
+STREAM_COUNTERS = {"stream_rows": "map_stream_rows", "stream_row_budget": "map_stream_row_budget",
+                   "pairs_kept": "map_pairs_kept", "pairs_dropped": "map_pairs_dropped"}
+
+
+def _to_host(traces: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A phase's device traces as numpy arrays of their own dtypes, in one
+    device-to-host copy (float64 holds float32 and the counts exactly)."""
+    keys = list(traces)
+    flat = torch.cat([traces[k].reshape(-1).to(torch.float64) for k in keys]).cpu()
+    out, off = {}, 0
+    for k in keys:
+        v = traces[k]
+        out[k] = flat[off:off + v.numel()].to(v.dtype).reshape(v.shape).numpy()
+        off += v.numel()
+    return out
 
 
 class SLAMRunner:
@@ -222,6 +241,7 @@ class SLAMRunner:
             bin_overflow_last=0, bin_overflow_max=0,
             compactions=0, slots_reclaimed=0, emergency_pruned=0, progress_failed=0,
             map_broadcast_bytes=0, map_broadcast_s=0.0, map_collective_s=0.0,
+            **{stat: 0 for stat in STREAM_COUNTERS.values()},
         )
         self.overflow_warn_threshold = int(
             config.get("raster", {}).get("overflow_warn_threshold", 100_000))
@@ -376,138 +396,56 @@ class SLAMRunner:
     def step(self, time_idx: int, frame=None):
         """Process one frame (tracking + optional densify/map/keyframe);
         ``frame`` is what ``_load_frame(time_idx)`` returns, loaded here
-        when not given."""
+        when not given.  While a profiler records, each phase is an
+        ``hs.*`` span (``utils/trace.py``; ``hs.frame``, ``hs.track``,
+        ``hs.report``, ``hs.densify``, ``hs.keyframes``, ``hs.window``,
+        ``hs.map``, ``hs.keyframe_add``, ``hs.checkpoint``, in that order
+        where they run), and the step's changes of ``stats`` go into the
+        trace as ``hierslam.step<t>``."""
         cfg = self.config
         dev = self.device
         t = time_idx
-        im_np, depth_np, label_np, gt_w2c = frame if frame is not None else self._load_frame(t)
-        self.gt_w2c_all.append(gt_w2c)
-        im = torch.as_tensor(im_np, device=dev)
-        depth = torch.as_tensor(depth_np, device=dev)
-        if t > 0:
-            self.params = propagate_pose(self.params, t, cfg["tracking"]["forward_prop"])
+        stats0 = dict(self.stats) if trace.recording() else None
+        with trace.span("hs.frame"):
+            im_np, depth_np, label_np, gt_w2c = (frame if frame is not None
+                                                 else self._load_frame(t))
+            self.gt_w2c_all.append(gt_w2c)
+            im = torch.as_tensor(im_np, device=dev)
+            depth = torch.as_tensor(depth_np, device=dev)
 
         # (A) tracking
-        t0 = time.time()
-        if t > 0 and not cfg["tracking"]["use_gt_poses"]:
-            p_b, v_b = self._sliced_state()
-            p_b, bloss, maxrad, trace, carry = self.tracker(
-                p_b, v_b["active"], v_b["max_2D_radius"], im, depth, t)
-            if cfg["tracking"]["use_depth_loss_thres"]:
-                if float(trace[1][-1]) >= cfg["tracking"]["depth_loss_thres"]:
-                    p_b, bloss, maxrad, trace, carry = self.tracker.continue_round(
-                        p_b, v_b["active"], im, depth, t, carry)
-            bloss_f = float(bloss)
-            self._merge_params(p_b)
-            self.variables["max_2D_radius"][: self.bucket] = maxrad
-            self.logger.log(t, tracking_loss=bloss_f)
-            self.last_tracking_trace = {
-                "loss": trace[0].cpu().numpy(), "depth": trace[1].cpu().numpy(),
-                "im": trace[2].cpu().numpy()}
-            self.logger.log_iters(t, "tracking", self.last_tracking_trace)
-            self.stats["tracking_iter_time_sum"] += time.time() - t0
-            self.stats["tracking_iter_time_count"] += cfg["tracking"]["num_iters"]
-        elif t > 0:
-            self.params = apply_gt_pose(
-                self.params, torch.as_tensor(gt_w2c, dtype=torch.float32, device=dev), t)
-        self.stats["tracking_frame_time_sum"] += time.time() - t0
-        self.stats["tracking_frame_time_count"] += 1
+        with trace.span("hs.track"):
+            self._track(t, im, depth, gt_w2c)
 
         report = t == 0 or (t + 1) % cfg["report_global_progress_every"] == 0
         if report:
-            self._report_progress(t, im, depth, "tracking", cfg["tracking"]["sil_thres"])
+            with trace.span("hs.report"):
+                self._report_progress(t, im, depth, "tracking", cfg["tracking"]["sil_thres"])
 
         # (B) densify + mapping
         if t == 0 or (t + 1) % cfg["map_every"] == 0:
-            m0 = time.time()
+            m0 = time.perf_counter()
             if cfg["mapping"].get("add_new_gaussians", True) and t > 0:
-                gen_state = self.generator.get_state()
-                p_b, v_b = self._sliced_state()
-                p_b, v_b, n_added, n_over, n_bin_drop = self.densifier(
-                    p_b, v_b, im, depth, t, self.generator)
-                prune_attempts = 0
-                while int(n_over) > 0:
-                    if self.bucket < self.capacity:
-                        self.bucket = min(self.capacity, self.bucket + self.bucket_step)
-                    elif self._holes() > 0:
-                        self._compact(f"densify overflow at frame {t}")
-                    elif prune_attempts < 3 and self._escalated_prune(int(n_over), t):
-                        prune_attempts += 1
-                    else:
-                        break
-                    # each remedy redoes the densify with the same draws
-                    self.generator.set_state(gen_state)
-                    p_b, v_b = self._sliced_state()
-                    p_b, v_b, n_added, n_over, n_bin_drop = self.densifier(
-                        p_b, v_b, im, depth, t, self.generator)
-                if int(n_over) > 0:
-                    msg = (f"frame {t}: map capacity {self.capacity} saturated — "
-                           f"{int(n_over)} new gaussians dropped even after "
-                           "compaction and escalated pruning; raise map_capacity")
-                    if cfg["mapping"].get("on_capacity_saturated", "error") == "error":
-                        raise RuntimeError(msg)
-                    warnings.warn(msg)
-                self._merge_params(p_b)
-                self._merge_variables(v_b)
-                self.stats["densify_added"] += int(n_added)
-                self.stats["densify_overflow"] += int(n_over)
-                n_bin_drop = int(n_bin_drop)
-                self.stats["bin_overflow_last"] = n_bin_drop
-                self.stats["bin_overflow_max"] = max(self.stats["bin_overflow_max"], n_bin_drop)
-                if n_bin_drop > self.overflow_warn_threshold:
-                    warnings.warn(f"frame {t}: {n_bin_drop} (gaussian, tile) pairs dropped "
-                                  "by binning caps — consider raising raster.max_per_tile")
-                self.logger.log(t, bin_overflow=n_bin_drop)
-
-            est = self._est_w2c(t)
-            num_kf = cfg["mapping_window_size"] - 2
-            selected = keyframe_selection_overlap(
-                depth_np, est, self.intrinsics, self.keyframes.frames[:-1], num_kf,
-                rng=self.rng)
-            window_frames = [self.keyframes.frames[i] for i in selected]
-            if len(self.keyframes) > 0:
-                window_frames.append(self.keyframes.frames[-1])
-            window_frames.append(Keyframe(id=t, w2c=est, color=im_np, depth=depth_np,
-                                          labels=label_np))
+                with trace.span("hs.densify"):
+                    self._densify(t, im, depth)
+            with trace.span("hs.keyframes"):
+                est = self._est_w2c(t)
+                num_kf = cfg["mapping_window_size"] - 2
+                selected = keyframe_selection_overlap(
+                    depth_np, est, self.intrinsics, self.keyframes.frames[:-1], num_kf,
+                    rng=self.rng)
+                window_frames = [self.keyframes.frames[i] for i in selected]
+                if len(self.keyframes) > 0:
+                    window_frames.append(self.keyframes.frames[-1])
+                window_frames.append(Keyframe(id=t, w2c=est, color=im_np, depth=depth_np,
+                                              labels=label_np))
             # the JAX mapper pads the window to a static size; rand_idx never
             # reads the padding, so the port binds only the real frames
-            window = self._window_arrays(window_frames)
-            n_it = cfg["mapping"]["num_iters"]
-            rand_idx = self.rng.integers(0, len(window_frames),
-                                         (n_it, self.map_dp) if self.mesh is not None else n_it)
-            p_b, v_b = self._sliced_state()
-            p_b, v_b, self.mlp, self.mlp_state, losses = self.mapper(
-                p_b, v_b, window, rand_idx, self.mlp, self.mlp_state, self.generator)
-            losses = {k: v.cpu().numpy() for k, v in losses.items()}
-            self._merge_params(p_b)
-            self._merge_variables(v_b)
-            if self._holes() >= self.hole_compact_threshold:
-                self._compact(f"hole threshold after mapping at frame {t}")
-            else:
-                self.bucket = max(self.bucket, self._choose_bucket())
-            self.last_mapping_trace = losses
-            self.logger.log_iters(t, "mapping", losses)
-            n_mb = int(np.max(losses.get("n_map_bin_dropped", 0.0)))
-            if n_mb > self.overflow_warn_threshold:
-                vb = self.rc.visible_budget
-                if self.rc.backend == "stream":
-                    causes = "row budget / per-tile cap / emission budgets"
-                    knob = "raster.stream_rows / stream_cap"
-                else:
-                    causes = ("capacity-class ladder / emission budgets"
-                              + (f" / visible_budget={vb}" if vb else ""))
-                    knob = "raster.bucket_spec"
-                warnings.warn(f"frame {t}: mapping binning dropped {n_mb} (gaussian, tile) "
-                              f"pairs ({causes}) — consider widening {knob}")
-                self.logger.log(t, n_map_bin_dropped=n_mb)
-            n_gd = int(np.max(losses.get("n_grad_dropped", 0.0)))
-            if n_gd > 0:
-                warnings.warn(f"frame {t}: {n_gd} gradient routes truncated by "
-                              f"grad_pair_budget={self.rc.grad_pair_budget}")
-                self.logger.log(t, n_grad_dropped=n_gd)
-            final_loss = float(losses["loss"][-1])
-            self.logger.log(t, mapping_loss=final_loss, n_active=int(self.variables["n_active"]))
-            dm = time.time() - m0
+            with trace.span("hs.window"):
+                window = self._window_arrays(window_frames)
+            with trace.span("hs.map"):
+                self._map(t, window, len(window_frames))
+            dm = time.perf_counter() - m0
             if self.mesh is not None:   # inside dm: the phase cannot run without them
                 for k in ("broadcast_bytes", "broadcast_s", "collective_s"):
                     self.stats[f"map_{k}"] += self.mesh.stats[k]
@@ -516,21 +454,143 @@ class SLAMRunner:
             self.stats["mapping_frame_time_sum"] += dm
             self.stats["mapping_frame_time_count"] += 1
             if report:
-                self._report_progress(t, im, depth, "mapping", cfg["mapping"]["sil_thres"])
+                with trace.span("hs.report"):
+                    self._report_progress(t, im, depth, "mapping", cfg["mapping"]["sil_thres"])
 
         # (C) keyframe admission
         if ((t == 0 or (t + 1) % cfg["keyframe_every"] == 0 or t == self.num_frames - 2)
                 and np.isfinite(gt_w2c).all()):
-            self.keyframes.add(Keyframe(id=t, w2c=self._est_w2c(t), color=im_np,
-                                        depth=depth_np, labels=label_np))
+            with trace.span("hs.keyframe_add"):
+                self.keyframes.add(Keyframe(id=t, w2c=self._est_w2c(t), color=im_np,
+                                            depth=depth_np, labels=label_np))
 
         # (D) checkpoint
         if cfg["save_checkpoints"] and t % cfg["checkpoint_interval"] == 0:
-            pn = G.active_params_to_numpy(self.params, self.variables)
-            uio.save_params_ckpt(pn, self.output_dir, t)
-            np.save(os.path.join(self.output_dir, f"keyframe_time_indices{t}.npy"),
-                    np.array(self.keyframes.time_indices))
-            uio.save_semantic_decoder(self._mlp_numpy(), self.output_dir, suffix=f"_{t}")
+            with trace.span("hs.checkpoint"):
+                pn = G.active_params_to_numpy(self.params, self.variables)
+                uio.save_params_ckpt(pn, self.output_dir, t)
+                np.save(os.path.join(self.output_dir, f"keyframe_time_indices{t}.npy"),
+                        np.array(self.keyframes.time_indices))
+                uio.save_semantic_decoder(self._mlp_numpy(), self.output_dir, suffix=f"_{t}")
+        if stats0 is not None:
+            trace.add_counters(f"hierslam.step{t}",
+                               {k: v - stats0[k] for k, v in self.stats.items()})
+
+    def _track(self, t: int, im, depth, gt_w2c) -> None:
+        """Propagate the pose to frame ``t``, then track it (or set it from
+        the ground truth under ``tracking.use_gt_poses``)."""
+        cfg = self.config
+        if t > 0:
+            self.params = propagate_pose(self.params, t, cfg["tracking"]["forward_prop"])
+        t0 = time.perf_counter()
+        if t > 0 and not cfg["tracking"]["use_gt_poses"]:
+            p_b, v_b = self._sliced_state()
+            p_b, bloss, maxrad, trace_, carry = self.tracker(
+                p_b, v_b["active"], v_b["max_2D_radius"], im, depth, t)
+            if cfg["tracking"]["use_depth_loss_thres"]:
+                if float(trace_[1][-1]) >= cfg["tracking"]["depth_loss_thres"]:
+                    p_b, bloss, maxrad, trace_, carry = self.tracker.continue_round(
+                        p_b, v_b["active"], im, depth, t, carry)
+            bloss_f = float(bloss)
+            self._merge_params(p_b)
+            self.variables["max_2D_radius"][: self.bucket] = maxrad
+            self.logger.log(t, tracking_loss=bloss_f)
+            self.last_tracking_trace = {
+                "loss": trace_[0].cpu().numpy(), "depth": trace_[1].cpu().numpy(),
+                "im": trace_[2].cpu().numpy()}
+            self.logger.log_iters(t, "tracking", self.last_tracking_trace)
+            self.stats["tracking_iter_time_sum"] += time.perf_counter() - t0
+            self.stats["tracking_iter_time_count"] += cfg["tracking"]["num_iters"]
+        elif t > 0:
+            self.params = apply_gt_pose(
+                self.params, torch.as_tensor(gt_w2c, dtype=torch.float32, device=self.device), t)
+        self.stats["tracking_frame_time_sum"] += time.perf_counter() - t0
+        self.stats["tracking_frame_time_count"] += 1
+
+    def _densify(self, t: int, im, depth) -> None:
+        """Add gaussians where frame ``t`` is not yet explained, with the
+        overflow remedies (a larger bucket, compaction, escalated pruning)."""
+        cfg = self.config
+        gen_state = self.generator.get_state()
+        p_b, v_b = self._sliced_state()
+        p_b, v_b, n_added, n_over, n_bin_drop = self.densifier(
+            p_b, v_b, im, depth, t, self.generator)
+        prune_attempts = 0
+        while int(n_over) > 0:
+            if self.bucket < self.capacity:
+                self.bucket = min(self.capacity, self.bucket + self.bucket_step)
+            elif self._holes() > 0:
+                self._compact(f"densify overflow at frame {t}")
+            elif prune_attempts < 3 and self._escalated_prune(int(n_over), t):
+                prune_attempts += 1
+            else:
+                break
+            # each remedy redoes the densify with the same draws
+            self.generator.set_state(gen_state)
+            p_b, v_b = self._sliced_state()
+            p_b, v_b, n_added, n_over, n_bin_drop = self.densifier(
+                p_b, v_b, im, depth, t, self.generator)
+        if int(n_over) > 0:
+            msg = (f"frame {t}: map capacity {self.capacity} saturated — "
+                   f"{int(n_over)} new gaussians dropped even after "
+                   "compaction and escalated pruning; raise map_capacity")
+            if cfg["mapping"].get("on_capacity_saturated", "error") == "error":
+                raise RuntimeError(msg)
+            warnings.warn(msg)
+        self._merge_params(p_b)
+        self._merge_variables(v_b)
+        self.stats["densify_added"] += int(n_added)
+        self.stats["densify_overflow"] += int(n_over)
+        n_bin_drop = int(n_bin_drop)
+        self.stats["bin_overflow_last"] = n_bin_drop
+        self.stats["bin_overflow_max"] = max(self.stats["bin_overflow_max"], n_bin_drop)
+        if n_bin_drop > self.overflow_warn_threshold:
+            warnings.warn(f"frame {t}: {n_bin_drop} (gaussian, tile) pairs dropped "
+                          "by binning caps — consider raising raster.max_per_tile")
+        self.logger.log(t, bin_overflow=n_bin_drop)
+
+    def _map(self, t: int, window, n_window: int) -> None:
+        """The mapping phase over ``window``, its losses read back in one
+        copy, the merges and the compaction check."""
+        cfg = self.config
+        n_it = cfg["mapping"]["num_iters"]
+        rand_idx = self.rng.integers(0, n_window,
+                                     (n_it, self.map_dp) if self.mesh is not None else n_it)
+        p_b, v_b = self._sliced_state()
+        p_b, v_b, self.mlp, self.mlp_state, losses = self.mapper(
+            p_b, v_b, window, rand_idx, self.mlp, self.mlp_state, self.generator)
+        losses = _to_host(losses)
+        self._merge_params(p_b)
+        self._merge_variables(v_b)
+        if self._holes() >= self.hole_compact_threshold:
+            self._compact(f"hole threshold after mapping at frame {t}")
+        else:
+            self.bucket = max(self.bucket, self._choose_bucket())
+        self.last_mapping_trace = losses
+        self.logger.log_iters(t, "mapping", losses)
+        for key, stat in STREAM_COUNTERS.items():
+            if key in losses:
+                self.stats[stat] += int(losses[key][0])
+        n_mb = int(np.max(losses.get("n_map_bin_dropped", 0.0)))
+        if n_mb > self.overflow_warn_threshold:
+            vb = self.rc.visible_budget
+            if self.rc.backend == "stream":
+                causes = "row budget / per-tile cap / emission budgets"
+                knob = "raster.stream_rows / stream_cap"
+            else:
+                causes = ("capacity-class ladder / emission budgets"
+                          + (f" / visible_budget={vb}" if vb else ""))
+                knob = "raster.bucket_spec"
+            warnings.warn(f"frame {t}: mapping binning dropped {n_mb} (gaussian, tile) "
+                          f"pairs ({causes}) — consider widening {knob}")
+            self.logger.log(t, n_map_bin_dropped=n_mb)
+        n_gd = int(np.max(losses.get("n_grad_dropped", 0.0)))
+        if n_gd > 0:
+            warnings.warn(f"frame {t}: {n_gd} gradient routes truncated by "
+                          f"grad_pair_budget={self.rc.grad_pair_budget}")
+            self.logger.log(t, n_grad_dropped=n_gd)
+        final_loss = float(losses["loss"][-1])
+        self.logger.log(t, mapping_loss=final_loss, n_active=int(self.variables["n_active"]))
 
     # ------------------------------------------------------------------
     def _report_progress(self, t, im, depth, phase: str, sil_thres: float):
@@ -660,6 +720,7 @@ class SLAMRunner:
             "map_broadcast_bytes": s["map_broadcast_bytes"],
             "map_broadcast_s": s["map_broadcast_s"],
             "map_collective_s": s["map_collective_s"],
+            **{stat: s[stat] for stat in STREAM_COUNTERS.values()},
             "n_active": int(self.variables["active"].sum()),
         }
 

@@ -96,6 +96,8 @@ def test_profile_traces_the_listed_frame(sequence, baseline, tmp_path):
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("aten::" in n for n in names)        # the frame's operations were traced
+    assert {"hs.frame", "hs.track", "hs.map", "hs.map.iter"} <= names   # and named by phase
+    assert "hierslam.step1" in trace
     _same_params(params, baseline)
 
 
