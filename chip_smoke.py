@@ -12,8 +12,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. environment: card name and power limit (nvidia-smi), kernel build with
    nvcc from ``hierslam_torch/csrc`` (one nvcc per source, in parallel),
-   the ptxas report of K1-K5 (registers, shared memory, spill bytes; a
-   spill in any instantiation fails the run);
+   the ptxas report of K1-K5 and ``bin_emit`` (registers, shared memory,
+   spill bytes; a spill in any instantiation fails the run);
 2. kernels: K1-K4 against their plain PyTorch versions at F = 1, 3, 29,
    32, 33, 64, 77 and 128 (every feature bucket's edges, the widest the
    kernels take; the padding cases of the backwards' warp reduce-scatter)
@@ -61,6 +61,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    be finite, ``params.npz`` must carry the JAX runner's keys; K5 on the
    first mapping iteration's backward (the pair stream's gather) against
    its plain version, to the bit, twice, timed beside ``index_add_``;
+   ``bin_emit`` on frame 0's first stream binning's pair emission against
+   its plain version (a boolean-mask compaction a cell row) on the same
+   card tensors, to the bit, twice, timed;
 5. ladder: the same config with ``raster.backend="pallas"`` on 3 frames
    (mapping at t=0 and, after a densify, at t=2), with its own count check;
 6. cli, the disk-to-eval path: the 8 procedural frames written in the
@@ -180,7 +183,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    array and every frame's pose equal to the bit.
 
 The launch counts of phases 4-6 include the two t = 0 progress renders (K1
-at each ``bucket_spec`` class) that ``SLAMRunner.step`` makes.  Every ladder
+at each ``bucket_spec`` class) that ``SLAMRunner.step`` makes.  Every count
+check holds ``bin_emit`` at one launch a binning on the card that emits a
+pair (``count_binnings``) and the plain versions, the emission's
+(``binning.plain_counts``) among them, at 0 calls.  Every ladder
 render launches K1 (and K2) once a capacity class, each class at its true
 tile ids into buffers the classes share; the K1/K2 checks on tables the
 main path recorded take those tile ids.
@@ -988,6 +994,94 @@ def recording_gather_bwd(seen: list):
         kernels.gather_bwd = launch
 
 
+def moved(x, device):
+    """``x`` with every tensor in it (nested in tuples) on ``device``."""
+    if isinstance(x, tuple):
+        return tuple(moved(y, device) for y in x)
+    return x.to(device) if hasattr(x, "to") else x
+
+
+@contextlib.contextmanager
+def recording_emit_pairs(seen: list):
+    """While active, the first pair emission of a stream binning (the call
+    of ``binning.emit_pairs`` inside ``binning.bin_stream``, the stream
+    mapper's binning) leaves copies of its arguments in ``seen``, in host
+    memory, so that they add nothing to the run's peak device memory.  Both
+    are wrapped from here, the package has no hook for them; every call
+    still goes to the kernel."""
+    from hierslam_torch.ops import binning
+
+    bin_stream, emit, inside = binning.bin_stream, binning.emit_pairs, [False]
+
+    def stream_binning(*args, **kwargs):
+        inside[0] = True
+        try:
+            return bin_stream(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    def recording(*args):
+        if inside[0] and not seen:
+            seen.append(moved(args, "cpu"))
+        return emit(*args)
+
+    binning.bin_stream, binning.emit_pairs = stream_binning, recording
+    try:
+        yield
+    finally:
+        binning.bin_stream, binning.emit_pairs = bin_stream, emit
+
+
+OPS_PER_SAT_PAIR = 9 * 9 + 4 * 9   # 9 corner exponents of 9 operations, 4 quads of ~9 (exp one)
+
+
+def check_bin_emit(name: str, args, reps: int = 20):
+    """``bin_emit`` against its plain version on a recorded pair emission
+    (``binning.emit_pairs``'s arguments): the kernel path (the total read
+    once, one launch) twice and the plain loop (``binning.emit_pairs_plain``,
+    a boolean-mask compaction a cell row) on the same card tensors, every
+    output equal to the bit.  Times the kernel alone (the total known) and
+    the plain loop on the card.  Returns (JSON rows, ok)."""
+    import torch
+
+    from hierslam_torch.ops import binning, kernels
+
+    args = moved(args, torch.device("cuda"))
+    rect_min, w_rect, _, depth, o, budgets, grid_x, tile, vis, sat, offs = args
+    ref = binning.emit_pairs_plain(*args[:-1])
+    outs = [binning.emit_pairs(*args) for _ in range(2)]
+
+    def bits(x):
+        return x.view(torch.int32) if x.is_floating_point() else x
+
+    differ = sum(int((bits(x) != bits(y)).sum()) if x.shape == y.shape else max(x.numel(), 1)
+                 for out in outs for x, y in zip(out, ref) if y is not None)
+    same = differ == 0
+    m, k, n = int(offs[-1]), o.shape[0], rect_min.shape[0]
+    k_emit = int(offs.diff().max())   # ranks that emit: the others read only offs
+    sat32 = tuple(x.float().contiguous() for x in sat) if sat is not None else None
+    rect_c, depth32 = rect_min.contiguous(), depth.float().contiguous()
+    ms = cuda_ms(lambda: kernels.bin_emit(rect_c, w_rect, depth32, o, offs, m, grid_x, tile,
+                                          vis, sat32), reps)
+    plain_ms = cuda_ms(lambda: binning.emit_pairs_plain(*args[:-1]), 3)
+    # each emitting rank's order entry, rect, width and depth (with sat its
+    # screen terms) read once; each pair's tile, depth and id (with sat its
+    # quads) written once
+    with_sat = sat is not None
+    bb, bb_by = bound(k_emit * (36 + 24 * with_sat) + m * (20 + 8 * with_sat),
+                      m * OPS_PER_SAT_PAIR * with_sat)
+    print(f"[kernels] {name} bin_emit: two launches equal to the bit to the plain version on "
+          f"the same card tensors: {same} ({differ} elements differ); N={n} ranks={k} "
+          f"emitting={k_emit} pairs={m} cell rows={len(budgets)} sat={with_sat} tile={tile} "
+          f"grid_x={grid_x} visible ranks={vis}; bin_emit {ms:.4f} ms (bound {bb:.4f} ms by "
+          f"{bb_by}, {100 * bb / ms:.1f}%); plain {plain_ms:.3f} ms", flush=True)
+    row = dict(kernel="bin_emit", name=f"bin_emit[{name}]", route="cuda",
+               source="hierslam_torch/csrc/binning.cu",
+               replaces="hierslam_tpu/ops/binning.py:328", ms=ms, plain_ms=plain_ms,
+               bound_ms=bb, bound_by=bb_by, library_ms=None, max_abs_err=float(differ))
+    return [row], same
+
+
 def check_gather(name: str, cot, spos, ends, n_diff: int, grad_bf16: bool, reps: int = 20):
     """K5 against its plain version on a gather backward (inputs on the
     host or the card): two launches, each equal to the bit to the plain
@@ -1236,24 +1330,53 @@ def tracking_table(cfg_path: str):
     return seen[0]
 
 
-def reset_counts() -> None:
-    """Zero the kernels' launch counts and the plain versions' call counts."""
-    from hierslam_torch.ops import gather_vjp, kernels, render_pallas, render_stream
+BINNINGS = [0]   # binnings on the card that emitted a pair, since the counts were zeroed
 
+
+def count_binnings() -> None:
+    """Count in ``BINNINGS`` the binnings on the card that emit a pair (each
+    launches ``bin_emit`` once, one with none launches nothing).  Every
+    binning goes through ``binning._emit_sort_sat``, wrapped from here once
+    a process (the package has no hook for it); the wrapped function still
+    does all the work."""
+    from hierslam_torch.ops import binning
+
+    emit = binning._emit_sort_sat
+    if getattr(emit, "counting", False):
+        return
+
+    def counting(*args, **kwargs):
+        sp = emit(*args, **kwargs)
+        BINNINGS[0] += int(sp.s_gauss.is_cuda and sp.s_gauss.shape[0] > 0)
+        return sp
+
+    counting.counting = True
+    binning._emit_sort_sat = counting
+
+
+def reset_counts() -> None:
+    """Zero the kernels' launch counts, the plain versions' call counts and
+    ``BINNINGS``."""
+    from hierslam_torch.ops import binning, gather_vjp, kernels, render_pallas, render_stream
+
+    count_binnings()
     kernels.reset_launch_counts()
+    BINNINGS[0] = 0
     for counts in (render_pallas.plain_counts, render_stream.plain_counts,
-                   gather_vjp.plain_counts):
+                   gather_vjp.plain_counts, binning.plain_counts):
         for k in counts:
             counts[k] = 0
 
 
 def read_counts():
-    """-> (kernel launches, plain-version calls) since ``reset_counts``."""
-    from hierslam_torch.ops import gather_vjp, kernels, render_pallas, render_stream
+    """-> (kernel launches, plain-version calls, binnings on the card that
+    emitted a pair) since ``reset_counts``."""
+    from hierslam_torch.ops import binning, gather_vjp, kernels, render_pallas, render_stream
 
     return (dict(kernels.launch_counts),
             dict(render_pallas.plain_counts, **render_stream.plain_counts,
-                 **gather_vjp.plain_counts))
+                 **gather_vjp.plain_counts, **binning.plain_counts),
+            BINNINGS[0])
 
 
 def ladder_classes(rc, H: int, W: int) -> int:
@@ -1267,14 +1390,15 @@ def ladder_classes(rc, H: int, W: int) -> int:
 
 def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
                map_every: Optional[int] = None, record: Optional[list] = None,
-               gather_record: Optional[list] = None):
+               gather_record: Optional[list] = None, emit_record: Optional[list] = None):
     """Drive ``SLAMRunner.step`` over ``n_frames`` procedural frames at
     1200x680 with the flagship config (``backend``/``map_every`` override
     it when given).  Launch counts are zeroed just before the run and read
     just after.  With ``record`` (a list), frame ``RECORD_FRAME``'s first
     tracking table is left in it; with ``gather_record``, the inputs of the
-    first K5 launch (frame 0's first mapping backward).  Returns (ok,
-    launches, summary)."""
+    first K5 launch (frame 0's first mapping backward); with
+    ``emit_record``, those of frame 0's first stream binning's pair
+    emission.  Returns (ok, launches, summary)."""
     import numpy as np
     import torch
 
@@ -1308,6 +1432,8 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
                 stack.enter_context(recording_blend_fwd(record))
             if gather_record is not None and t == 0:
                 stack.enter_context(recording_gather_bwd(gather_record))
+            if emit_record is not None and t == 0:
+                stack.enter_context(recording_emit_pairs(emit_record))
             runner.step(t)
         line = f"{tag} frame {t}:"
         if t > 0:
@@ -1326,7 +1452,7 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
         print(line, flush=True)
     torch.cuda.synchronize()
     wall = time.time() - t_run
-    launches, plain = read_counts()
+    launches, plain, n_bin = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     pn = runner.finalize()
     summ = runner.runtime_summary()
@@ -1337,11 +1463,12 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
     if backend == "stream":
         want = {"blend_fwd": n_track * it_t + n_dens + n_prog, "blend_bwd": n_track * it_t,
                 "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
-                "gather_bwd": n_map * it_m}
+                "gather_bwd": n_map * it_m, "bin_emit": n_bin}
     else:
         want = {"blend_fwd": n_track * it_t + n_dens + n_prog + n_map * it_m * n_classes,
                 "blend_bwd": n_track * it_t + n_map * it_m * n_classes,
-                "stream_fwd": 0, "stream_bwd": 0, "gather_bwd": n_map * it_m}
+                "stream_fwd": 0, "stream_bwd": 0, "gather_bwd": n_map * it_m,
+                "bin_emit": n_bin}
     print(f"{tag} launches: {json.dumps(launches)} expected: {json.dumps(want)} plain calls: "
           f"{json.dumps(plain)}", flush=True)
     ok &= launches == want
@@ -1530,7 +1657,7 @@ def cli_phase(cfg_path: str):
     reset_counts()
     t0 = time.time()
     (pn, summ, res), text, eval_s = run_cli([wrapper], record)
-    launches, plain = read_counts()
+    launches, plain, n_bin = read_counts()
     wall = time.time() - t0
     row = eval_row(text)
     good_row = row is not None and len(row) == 8 and np.isfinite(row[:3] + row[4:]).all() \
@@ -1543,7 +1670,7 @@ def cli_phase(cfg_path: str):
     n_classes = ladder_classes(raster_config(cfg), FRAME["H"], FRAME["W"])
     want = {"blend_fwd": (n - 1) * it_t + (n_map - 1) + (2 + n_eval) * n_classes,
             "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
-            "gather_bwd": n_map * it_m}
+            "gather_bwd": n_map * it_m, "bin_emit": n_bin}
     files = ("params.npz", "semantic_decoder.npz", "config.py", "params4.npz",
              "keyframe_time_indices4.npy", "semantic_decoder_4.npz")
     missing = [f for f in files if not os.path.isfile(os.path.join(run_dir, f))]
@@ -1723,7 +1850,7 @@ def eval_novel_view_phase(finished, final):
     finally:
         runner.run_final_eval = real_eval
     wall = time.time() - t0
-    launches, plain = read_counts()
+    launches, plain, n_bin = read_counts()
     text = buf.getvalue()
     for line in text.splitlines():
         if not line.startswith((" semantic label", "current frame", "mean_iou")):
@@ -1746,7 +1873,7 @@ def eval_novel_view_phase(finished, final):
     n_show = sum(1 for t in (0, n // 2) if t < n)
     n_cls = ladder_classes(raster_config(cfg), FRAME["H"], FRAME["W"])
     want = {"blend_fwd": (n_eval + n_show) * n_cls, "blend_bwd": 0, "stream_fwd": 0,
-            "stream_bwd": 0, "gather_bwd": 0}
+            "stream_bwd": 0, "gather_bwd": 0, "bin_emit": n_bin}
     eval_dir = os.path.join(run_dir, "eval")
     n_levels = len(SEM_LEVELS)
     expect = {"renders": n_eval, "renders_depth": n_eval, "rgb": n_eval, "depth": n_eval,
@@ -1974,7 +2101,7 @@ def scannet_run(cfg_path: str, root: str, n: int, n_feat: int):
     t0 = time.time()
     with recording_stream_fwd(streams, rows, n_feat), contextlib.chdir(ROOT):
         (pn, summ, res), text, eval_s = run_cli([wrapper], tables, n_feat)
-    launches, plain = read_counts()
+    launches, plain, n_bin = read_counts()
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     row = eval_row(text)
@@ -1985,7 +2112,7 @@ def scannet_run(cfg_path: str, root: str, n: int, n_feat: int):
     n_classes = ladder_classes(raster_config(cfg), SCANNET_FRAME["H"], SCANNET_FRAME["W"])
     want = {"blend_fwd": (n - 1) * it_t + (n_map - 1) + (2 + n_eval) * n_classes,
             "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
-            "gather_bwd": n_map * it_m}
+            "gather_bwd": n_map * it_m, "bin_emit": n_bin}
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r[k] for r in recs for k in ("tracking_loss", "mapping_loss") if k in r]
@@ -2126,7 +2253,7 @@ def replica_run(cfg_path: str, root: str, n: int, tables=None, data=None, frame=
                     tables.setdefault(key, []),
                     pick=lambda tab, k=k: tab.requires_grad and tuple(tab.shape[:2]) == (128, k)))
         (pn, summ, res), text, eval_s = run_cli([wrapper])
-    launches, plain = read_counts()
+    launches, plain, n_bin = read_counts()
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     row = eval_row(text)
@@ -2140,7 +2267,7 @@ def replica_run(cfg_path: str, root: str, n: int, tables=None, data=None, frame=
     n_track = 0 if gt else (n - 1) * it_t * n_tcls
     want = {"blend_fwd": n_track + (n_map - 1) + (2 + n_eval) * n_cls + n_map * it_m * n_cls,
             "blend_bwd": n_track + n_map * it_m * n_cls, "stream_fwd": 0, "stream_bwd": 0,
-            "gather_bwd": n_map * it_m}
+            "gather_bwd": n_map * it_m, "bin_emit": n_bin}
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r[k] for r in recs for k in ("tracking_loss", "mapping_loss") if k in r]
@@ -2533,12 +2660,23 @@ def real_shape_phase():
 
         runner.densifier = counting
 
+    # the tool zeroes its counts after writing the frames (no binning) and
+    # reads them just before its K against 2K check, which bins again
+    oq_check, bins_read = tool.overflow_quality_check, []
+
+    def counted_then_check(*a, **kw):
+        bins_read.append(BINNINGS[0])
+        return oq_check(*a, **kw)
+
+    tool.overflow_quality_check = counted_then_check
+    count_binnings()
+    BINNINGS[0] = 0
     with recording_stream_fwd(streams, rows, tool.FEATURES, largest=True), \
             recording_blend_fwd(tables, pick=lambda tab: tab.shape[1] == 2 * 4096):
         report, runner = tool.run(argv, runner_hook=count_densifies)
     s, m = report["summary"], report["metrics"]
     width = 3 + runner.num_semantic
-    launches, plain = report["launches"], report["plain_calls"]
+    launches, plain, n_bin = report["launches"], report["plain_calls"], bins_read[0]
     n = report["frames"]
     cfg = runner.config
     it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
@@ -2547,7 +2685,7 @@ def real_shape_phase():
     n_cls = ladder_classes(runner.rc, runner.H, runner.W)
     want = {"blend_fwd": (n - 1) * it_t + densifies[0] + (2 + n_eval) * n_cls,
             "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
-            "gather_bwd": n_map * it_m}
+            "gather_bwd": n_map * it_m, "bin_emit": n_bin}
     print(f"[real_shape] F = {width} (3 + num_semantic); {n} frames of the 200-frame "
           f"procedural room at "
           f"{report['image'][0]}x{report['image'][1]}, tools/real_shape_run_torch.py's "
@@ -2711,7 +2849,7 @@ def classic_phase():
             runner.step(t)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches, plain = read_counts()
+    launches, plain, n_bin = read_counts()
     summ = runner.runtime_summary()
     it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
     n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
@@ -2721,7 +2859,7 @@ def classic_phase():
     want = {"blend_fwd": (n - 1) * it_t * n_tcls + (n_map - 1) + 2 * n_cls
             + n_map * it_m * n_cls,
             "blend_bwd": (n - 1) * it_t * n_tcls + n_map * it_m * n_cls,
-            "stream_fwd": 0, "stream_bwd": 0, "gather_bwd": n_map * it_m}
+            "stream_fwd": 0, "stream_bwd": 0, "gather_bwd": n_map * it_m, "bin_emit": n_bin}
     for e in events:
         print(f"{tag} densify at iteration {e['it']}: clones {int(e['clone'].sum())} splits "
               f"{int(e['split'].sum())} pruned {e['pruned']} of {e['rows']} rows, overflow "
@@ -2907,13 +3045,13 @@ def aniso_phase(final_state, small_state):
     reset_counts()
     runs = aniso_tracking(state, cfg_of, plain_frames(room), "cuda", ANISO_FRAMES, tables)
     torch.cuda.synchronize()
-    launches, plain = read_counts()
+    launches, plain, n_bin = read_counts()
     it_t = cfg_of(True)["tracking"]["num_iters"]
     n_tcls = track_classes(rc, FRAME["H"], FRAME["W"])
     per = len(ANISO_FRAMES) * it_t * n_tcls
     # the uncached tracker's renders gather the map: one K5 an iteration
     want = {"blend_fwd": 2 * per, "blend_bwd": 2 * per, "stream_fwd": 0, "stream_bwd": 0,
-            "gather_bwd": len(ANISO_FRAMES) * it_t}
+            "gather_bwd": len(ANISO_FRAMES) * it_t, "bin_emit": n_bin}
     ok = launches == want and not any(plain.values())
     for use_cache, r in runs.items():
         summ = r.runtime_summary()
@@ -3001,14 +3139,14 @@ def visualize_phase(finished):
         out = visualize.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches, plain = read_counts()
+    launches, plain, n_bin = read_counts()
     shown = list(range(0, n, VIZ_EVERY))
     expect = sorted([f"recon_{t:04d}.png" for t in shown] + [f"sem_{t:04d}.png" for t in shown])
     got = sorted(f for f in os.listdir(viz_dir) if f.endswith(".png"))
     sizes = {png_size(os.path.join(viz_dir, f)) for f in got}
     n_cls = ladder_classes(raster_config(cfg), FRAME["H"], FRAME["W"])
     want = {"blend_fwd": len(shown) * n_cls, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0,
-            "gather_bwd": 0}
+            "gather_bwd": 0, "bin_emit": n_bin}
     print(f"{tag} python3 -m hierslam_torch.scripts.visualize {' '.join(argv[1:])} on the "
           f"[cli] run ({n} frames, F = {3 + sum(SEM_LEVELS)}, its semantic_decoder.npz): wrote "
           f"{len(got)} PNGs to {out}: {got} (expected {expect}), sizes "
@@ -3087,7 +3225,8 @@ def worker_recorded(kind: str):
 
 
 def mesh_counts(mesh):
-    """-> [(launches, plain calls)] of every rank since its counts were zeroed."""
+    """-> [(launches, plain calls, binnings)] of every rank since its counts
+    were zeroed."""
     return [read_counts()] + mesh.run_workers(read_counts)
 
 
@@ -3156,8 +3295,8 @@ def parallel_map_run(cfg_path: str, record: dict):
              "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m, "gather_bwd": n_map * it_m}
     want_w = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": n_map * it_m,
               "stream_bwd": n_map * it_m, "gather_bwd": n_map * it_m}
-    for r, (launches, plain) in enumerate(counts):
-        want = want0 if r == 0 else want_w
+    for r, (launches, plain, n_bin) in enumerate(counts):
+        want = dict(want0 if r == 0 else want_w, bin_emit=n_bin)
         print(f"{tag} rank {r} launches {json.dumps(launches)} expected {json.dumps(want)} "
               f"plain calls {json.dumps(plain)}", flush=True)
         ok &= launches == want and not any(plain.values())
@@ -3534,7 +3673,7 @@ def main() -> int:
           f"bytes) at P={P}: {json.dumps(dyn)}", flush=True)
     reported = all(any(k.startswith(name) for k in ptx)
                    for name in ("blend_fwd", "blend_bwd", "stream_fwd", "stream_bwd",
-                                "gather_bwd"))
+                                "gather_bwd", "bin_emit"))
     if not reported or any(v.get("spill_stores", 1) + v.get("spill_loads", 1)
                            for v in ptx.values()):
         fail("a kernel spills registers to local memory (or its ptxas report is missing)")
@@ -3625,11 +3764,12 @@ def main() -> int:
                 fail(f"GPU run with the {backend} mapper disagrees with the CPU reference")
         print(f"[reference] done at {time.time() - t0:.1f} s", flush=True)
         runs = []
-        seen, gather_seen = [], []
+        seen, gather_seen, emit_seen = [], [], []
         for i in range(args.repeat):
             good, launches, summ = slam_phase(cfg_path,
                                               record=seen if recorded is None else None,
-                                              gather_record=gather_seen if i == 0 else None)
+                                              gather_record=gather_seen if i == 0 else None,
+                                              emit_record=emit_seen if i == 0 else None)
             if not good:
                 fail("SLAM phase (flagship as shipped)")
             runs.append(summ)
@@ -3645,6 +3785,13 @@ def main() -> int:
                 del gather_seen[:]
                 if not good:
                     fail("K5 check on the flagship's first mapping backward")
+                if not emit_seen:
+                    fail("no pair emission of a stream binning was recorded")
+                r, good = check_bin_emit("flagship first mapping binning", emit_seen[0])
+                rows += r
+                del emit_seen[:]
+                if not good:
+                    fail("bin_emit check on the flagship's first mapping binning")
         if args.repeat > 1:
             for key in ("tracking_iter_ms", "mapping_iter_ms"):
                 vals = [r[key] for r in runs]

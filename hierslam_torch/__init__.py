@@ -4,8 +4,9 @@ The JAX package beside this one is the reference: every module here mirrors
 the JAX module of the same name, and the tests hold each function against
 its JAX counterpart on the same numpy inputs.  The ladder blend
 (``csrc/blend.cu``) and the stream blend with its in-kernel projection
-(``csrc/stream.cu``), forward and backward, and the gathers' backward
-(``csrc/gather.cu``) run as hand-written CUDA kernels for Hopper;
+(``csrc/stream.cu``), forward and backward, the gathers' backward
+(``csrc/gather.cu``) and the binning's pair emission (``csrc/binning.cu``)
+run as hand-written CUDA kernels for Hopper;
 everything else is plain PyTorch.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;

@@ -74,8 +74,9 @@ def build_w2c(cam_quat: torch.Tensor, cam_trans: torch.Tensor) -> torch.Tensor:
     """Pose parameters -> 4x4 world-to-camera: ``[R(normalize(q)) | t]``."""
     R = quat_to_rotmat(cam_quat)
     top = torch.cat([R, cam_trans[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)
-    bottom = bottom.expand(top.shape[:-2] + (1, 4))
+    # made on the device: a copy from host memory would wait for it
+    bottom = top.new_zeros(top.shape[:-2] + (1, 4))
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -4,11 +4,16 @@
 Every Gaussian emits one (tile, depth) pair per tile its screen rect
 covers, with the JAX package's budgeted prefix emission (Gaussians sorted
 by ``tiles_touched`` descending, cell-row ``r`` covering the first ``B_r``
-of them).  The pairs are put in the total order tile, then depth, then
-gaussian id: two stable sorts, the first by id and the second by one
-packed int64 key ``tile << 32 | depth bits`` (depth > 0.2 for every live
-pair, so its float32 bits order like the value).  Unlike the static-shape
-JAX version, emitted-but-empty cells are filtered out before the sort.
+of them).  On CUDA tensors kernel ``bin_emit`` (``csrc/binning.cu``, via
+``ops/kernels.py``) writes every cell row's pairs at offsets the device
+works out, after one host read of their total; on CPU tensors the plain
+version (:func:`emit_pairs_plain`) compacts each row with a boolean mask.
+A CUDA tensor never takes the plain path.  The pairs are put in the
+total order tile, then depth, then gaussian id: two stable sorts, the
+first by id and the second by one packed int64 key ``tile << 32 | depth
+bits`` (depth > 0.2 for every live pair, so its float32 bits order like
+the value).  Unlike the static-shape JAX version, emitted-but-empty cells
+are filtered out before the sort.
 
 With ``sat_margin > 0`` each pair carries quantized per-quadrant lower
 bounds of its alpha over the tile; four global cumsums of ``log1p(-alpha)``
@@ -23,6 +28,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from hierslam_torch.ops import kernels
 
 SAT_SCALE = 255
 T_DONE_LOG = -9.210340371976182  # ln(1e-4)
@@ -101,6 +108,10 @@ def resolve_bucket_spec(spec, num_tiles: int):
     return tuple(out)
 
 
+# calls of the plain emission (a main-path run on the card keeps it at 0)
+plain_counts = {"emit_pairs_plain": 0}
+
+
 class SortedPairs(NamedTuple):
     s_gauss: torch.Tensor       # [M] gaussian ids (or visible ranks) in (tile, depth, id) order
     starts: torch.Tensor        # [T] per-tile run starts
@@ -116,7 +127,6 @@ def _emit_sort_sat(rect_min, rect_max, valid, depth, grid, tile_shape, r_cap,
                    emission_budgets, sat_margin, sat_floor, xy, conic,
                    opacity, visible_budget) -> SortedPairs:
     grid_y, grid_x = grid
-    th, tw = tile_shape
     n = depth.shape[0]
     dev = depth.device
     num_tiles = grid_y * grid_x
@@ -127,6 +137,7 @@ def _emit_sort_sat(rect_min, rect_max, valid, depth, grid, tile_shape, r_cap,
     budgets = tuple(min(b, base_n) for b in budgets)
     if len(budgets) < r_cap:
         raise ValueError("need one emission budget per cell row")
+    budgets = budgets[:r_cap]
     with_sat = sat_margin > 0.0
     if with_sat and (xy is None or conic is None or opacity is None):
         raise ValueError("sat_margin > 0 requires xy/conic/opacity")
@@ -139,32 +150,106 @@ def _emit_sort_sat(rect_min, rect_max, valid, depth, grid, tile_shape, r_cap,
     )
     n_dropped_emit = (touched_all - r_cap).clamp_min(0).sum()
     touched = touched_all.clamp_max(r_cap)
-    order = torch.sort(-touched, stable=True).indices
-    o = order[:base_n]
+    neg_sorted, order = torch.sort(-touched, stable=True)
+    offs, n_dropped_budget = emission_offsets(neg_sorted, budgets)
+    flat_tile, flat_depth, flat_gauss, flat_alpha = emit_pairs(
+        rect_min, w_rect, touched, depth, order[:base_n], budgets, grid_x, tile_shape,
+        bool(v_budget), (xy, conic, opacity.reshape(-1)) if with_sat else None, offs)
+
+    # (tile, depth, gauss) order: stable sort by gauss, then stable sort by
+    # the packed (tile, depth) key
+    p1 = torch.sort(flat_gauss, stable=True).indices
+    key = (flat_tile[p1] << 32) | flat_depth[p1].view(torch.int32).long()
+    p2 = torch.sort(key, stable=True).indices
+    perm = p1[p2]
+    s_tile = flat_tile[perm]
+    s_gauss = flat_gauss[perm]
+    m = s_gauss.shape[0]
+
+    tile_ids = torch.arange(num_tiles, device=dev)
+    starts = torch.searchsorted(s_tile, tile_ids)
+    ends = torch.searchsorted(s_tile, tile_ids, right=True)
+    counts = ends - starts
+
+    n_sat_masked = torch.zeros((), dtype=torch.int64, device=dev)
+    if with_sat:
+        k_need = torch.zeros((num_tiles,), dtype=torch.int64, device=dev)
+        if m > 0:
+            s_alpha = flat_alpha[perm]
+            for qi in range(4):
+                alpha_deq = s_alpha[:, qi].float() * (0.99 / SAT_SCALE)
+                csh = torch.cat([
+                    torch.zeros((1,), dtype=torch.float32, device=dev),
+                    torch.cumsum(torch.log1p(-alpha_deq), 0)[:-1],
+                ])
+                csh_start = csh[starts.clamp_max(m - 1)]
+                thresh = csh_start + T_DONE_LOG
+                hits = torch.searchsorted(-csh, -thresh, right=True)
+                k_need = torch.maximum(
+                    k_need, torch.minimum((hits - starts).clamp_min(0), counts)
+                )
+        k_eff = torch.minimum(
+            counts,
+            torch.ceil(sat_margin * k_need.float()).long().clamp_min(int(sat_floor)),
+        )
+        n_sat_masked = (counts - k_eff).sum()
+    else:
+        k_eff = counts
+
+    return SortedPairs(
+        s_gauss=s_gauss, starts=starts, counts=counts, k_eff=k_eff,
+        n_sat_masked=n_sat_masked,
+        n_dropped_pre=n_dropped_emit + n_dropped_budget,
+        order=order, v_budget=v_budget,
+    )
+
+
+def emission_offsets(neg_sorted: torch.Tensor, budgets: Sequence[int]):
+    """Where each cell row's pairs go in the emission's concatenation.
+    ``neg_sorted`` is ``-touched`` sorted ascending (tiles touched, clamped
+    to the ``r_cap = len(budgets)`` cell rows), so the gaussians that reach
+    cell row ``r`` (``touched > r``, ``cnt_gt[r]`` of them) are a prefix of
+    the touched-descending order and row ``r`` emits the first
+    ``min(budgets[r], cnt_gt[r])``.  Returns ``offs`` [r_cap + 1] int64, row
+    ``r``'s part at ``offs[r]:offs[r+1]``, and the pairs the budgets drop
+    ([]); reads nothing back to the host."""
+    dev = neg_sorted.device
+    cnt_gt = torch.searchsorted(neg_sorted, -torch.arange(len(budgets), device=dev))
+    # a pageable source is staged before the copy returns: no wait for the device
+    buds = torch.tensor(budgets, dtype=torch.int64).to(dev, non_blocking=True)
+    lens = torch.minimum(buds, cnt_gt)
+    offs = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+    return offs, (cnt_gt - buds).clamp_min(0).sum()
+
+
+def emit_pairs_plain(rect_min, w_rect, touched, depth, o, budgets, grid_x, tile_shape, vis,
+                     sat):
+    """Plain form of :func:`emit_pairs`: for each cell row ``r`` the cells
+    of the first ``budgets[r]`` gaussians of the touched-descending order
+    ``o``, kept where ``touched > r`` by one boolean-mask compaction a row,
+    concatenated in row order."""
+    plain_counts["emit_pairs_plain"] += 1
+    th, tw = tile_shape
     rmx, rmy = rect_min[o, 0], rect_min[o, 1]
     wr = w_rect.clamp_min(1)[o]
     tch = touched[o]
     dep = depth[o].float()
-    if with_sat:
+    if sat is not None:
+        xy, conic, opacity = sat
         sx, sy = xy[o, 0].float(), xy[o, 1].float()
         sca, scb, scc = conic[o, 0].float(), conic[o, 1].float(), conic[o, 2].float()
-        sop = opacity.reshape(-1)[o].float()
-
-    cnt_gt = torch.stack([(touched > r).sum() for r in range(r_cap)])
-    buds = torch.tensor(budgets[:r_cap], dtype=torch.int64, device=dev)
-    n_dropped_budget = (cnt_gt - buds).clamp_min(0).sum()
+        sop = opacity[o].float()
 
     tiles_parts, depth_parts, gauss_parts, alpha_parts = [], [], [], []
-    ids_b = o if not v_budget else torch.arange(base_n, device=dev)
-    for r in range(r_cap):
-        b = budgets[r]
+    ids_b = torch.arange(o.shape[0], device=o.device) if vis else o
+    for r, b in enumerate(budgets):
         ok = r < tch[:b]
         cell_x = rmx[:b] + r % wr[:b]
         cell_y = rmy[:b] + r // wr[:b]
         tiles_parts.append((cell_y * grid_x + cell_x)[ok])
         depth_parts.append(dep[:b][ok])
         gauss_parts.append(ids_b[:b][ok])
-        if with_sat:
+        if sat is not None:
             # per-quadrant conservative alpha lower bounds on the tile's
             # 3x3 corner grid, quantized floor-ward (never truncates a
             # contributor)
@@ -192,56 +277,29 @@ def _emit_sort_sat(rect_min, rect_max, valid, depth, grid, tile_shape, r_cap,
                                        torch.zeros_like(alpha_lb))
                 quads.append(torch.floor(alpha_lb / 0.99 * SAT_SCALE).to(torch.int16))
             alpha_parts.append(torch.stack(quads, -1))
+    return (torch.cat(tiles_parts), torch.cat(depth_parts), torch.cat(gauss_parts),
+            torch.cat(alpha_parts) if sat is not None else None)
 
-    flat_tile = torch.cat(tiles_parts)
-    flat_depth = torch.cat(depth_parts)
-    flat_gauss = torch.cat(gauss_parts)
-    # (tile, depth, gauss) order: stable sort by gauss, then stable sort by
-    # the packed (tile, depth) key
-    p1 = torch.sort(flat_gauss, stable=True).indices
-    key = (flat_tile[p1] << 32) | flat_depth[p1].view(torch.int32).long()
-    p2 = torch.sort(key, stable=True).indices
-    perm = p1[p2]
-    s_tile = flat_tile[perm]
-    s_gauss = flat_gauss[perm]
-    m = s_gauss.shape[0]
 
-    tile_ids = torch.arange(num_tiles, device=dev)
-    starts = torch.searchsorted(s_tile, tile_ids)
-    ends = torch.searchsorted(s_tile, tile_ids, right=True)
-    counts = ends - starts
-
-    n_sat_masked = torch.zeros((), dtype=torch.int64, device=dev)
-    if with_sat:
-        k_need = torch.zeros((num_tiles,), dtype=torch.int64, device=dev)
-        if m > 0:
-            s_alpha = torch.cat(alpha_parts)[perm]
-            for qi in range(4):
-                alpha_deq = s_alpha[:, qi].float() * (0.99 / SAT_SCALE)
-                csh = torch.cat([
-                    torch.zeros((1,), dtype=torch.float32, device=dev),
-                    torch.cumsum(torch.log1p(-alpha_deq), 0)[:-1],
-                ])
-                csh_start = csh[starts.clamp_max(m - 1)]
-                thresh = csh_start + T_DONE_LOG
-                hits = torch.searchsorted(-csh, -thresh, right=True)
-                k_need = torch.maximum(
-                    k_need, torch.minimum((hits - starts).clamp_min(0), counts)
-                )
-        k_eff = torch.minimum(
-            counts,
-            torch.ceil(sat_margin * k_need.float()).long().clamp_min(int(sat_floor)),
-        )
-        n_sat_masked = (counts - k_eff).sum()
-    else:
-        k_eff = counts
-
-    return SortedPairs(
-        s_gauss=s_gauss, starts=starts, counts=counts, k_eff=k_eff,
-        n_sat_masked=n_sat_masked,
-        n_dropped_pre=n_dropped_emit + n_dropped_budget,
-        order=order, v_budget=v_budget,
-    )
+def emit_pairs(rect_min, w_rect, touched, depth, o, budgets, grid_x, tile_shape, vis, sat,
+               offs):
+    """Every gaussian's (tile, depth, id) pairs, cell row by cell row: row
+    ``r``'s part, at ``offs[r]`` (:func:`emission_offsets`), holds the cell
+    ``r`` (row-major in its tile rect ``rect_min`` + ``w_rect`` wide) of the
+    first ``min(budgets[r], cnt_gt[r])`` gaussians of the touched-descending
+    order ``o``, ids ``o`` (ranks into it with ``vis``).  With ``sat`` =
+    (xy, conic, opacity) each pair also carries its quantized per-quadrant
+    alpha lower bounds over the tile.  -> (tile [M] int64, depth [M] f32,
+    gauss [M] int64, quads [M, 4] int16 or None).  On CUDA tensors kernel
+    ``bin_emit`` writes every part in place after one host read, of ``M``;
+    on CPU tensors :func:`emit_pairs_plain` runs."""
+    if o.device.type != "cuda":
+        return emit_pairs_plain(rect_min, w_rect, touched, depth, o, budgets, grid_x,
+                                tile_shape, vis, sat)
+    if sat is not None:
+        sat = tuple(x.float().contiguous() for x in sat)
+    return kernels.bin_emit(rect_min.contiguous(), w_rect, depth.float().contiguous(), o, offs,
+                            int(offs[-1]), grid_x, tile_shape, vis, sat)
 
 
 def _vis_fields(sp: SortedPairs, n: int):
@@ -339,7 +397,7 @@ def bin_bucketed(
     for n_b, k_b in spec:
         ids_b = rank_order[off:off + n_b]
         off += n_b
-        lim_b = torch.minimum(k_eff[ids_b], torch.tensor(k_b, device=dev))
+        lim_b = k_eff[ids_b].clamp_max(k_b)
         idx_b = _tile_lists(s_gauss_pad, starts[ids_b], lim_b, k_b)
         ids_out.append(ids_b)
         idx_out.append(idx_b)

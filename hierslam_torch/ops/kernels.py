@@ -32,9 +32,11 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# source -> extra flags.  stream.cu keeps multiplies and adds apart so that
-# its discrete decisions round as the plain PyTorch version does (see there).
-SOURCES = {"blend.cu": (), "stream.cu": ("-fmad=false",), "gather.cu": ()}
+# source -> extra flags.  stream.cu and binning.cu keep multiplies and adds
+# apart so that their discrete decisions round as the plain PyTorch versions
+# do (see there).
+SOURCES = {"blend.cu": (), "stream.cu": ("-fmad=false",), "gather.cu": (),
+           "binning.cu": ("-fmad=false",)}
 SMEM_BUDGET = 46 * 1024   # K2's dynamic shared memory per block, under the 48 KB default
 # K4's budget is above 48 KB (the launch asks for it): its shared copies of
 # the projection terms and the float4 features take 52 KB at F = 29 before
@@ -48,7 +50,7 @@ TILE_THREADS = 256        # most pixels a tile the kernels take (their launch bo
 
 # kernel launches since the last reset (one per launch, nowhere else)
 launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0,
-                 "gather_bwd": 0}
+                 "gather_bwd": 0, "bin_emit": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
@@ -147,6 +149,10 @@ def _load(source: str) -> ctypes.CDLL:
             lib.gather_max_cols.argtypes = []
             for fn in (lib.gather_bwd, lib.gather_max_cols):
                 fn.restype = _I
+        elif source == "binning.cu":
+            lib.bin_emit.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                                     _I, _P, _P, _P, _P, _P]
+            lib.bin_emit.restype = _I
         else:
             lib.stream_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
                                        _P, _P, _P]
@@ -415,3 +421,50 @@ def gather_bwd(cot: torch.Tensor, spos: torch.Tensor, ends: torch.Tensor, n_diff
     _raise_on(err, "gather_bwd")
     launch_counts["gather_bwd"] += 1
     return grad
+
+
+def bin_emit(rect_min: torch.Tensor, w_rect: torch.Tensor, depth: torch.Tensor,
+             order: torch.Tensor, offs: torch.Tensor, m: int, grid_x: int, tile_shape,
+             vis: bool, sat=None):
+    """The binning's pair emission (``csrc/binning.cu``).  Rank i of the
+    touched-descending order ``order`` [k] int64 emits, in each cell row r
+    with ``i < offs[r+1] - offs[r]``, the pair at ``offs[r] + i`` (offs
+    [r_cap + 1] int64 from ``binning.emission_offsets``, ``offs[-1] == m``):
+    its cell's tile, the gaussian's depth and its id (``order[i]``, or i with
+    ``vis``), and with ``sat`` = (xy [n, 2], conic [n, 3], opacity [n]
+    float32) its quantised per-quadrant alpha lower bounds over the tile.
+    rect_min [n, 2], w_rect [n] int64, depth [n] float32 -> (tile [m] int64,
+    depth [m] float32, gauss [m] int64, quads [m, 4] int16 or None)."""
+    if order.device.type != "cuda":
+        raise ValueError("the CUDA binning kernel takes CUDA tensors only")
+    dev = order.device
+    n, k, r_cap = rect_min.shape[0], order.shape[0], offs.shape[0] - 1
+    _check("rect_min", rect_min, torch.int64, (n, 2), dev)
+    _check("w_rect", w_rect, torch.int64, (n,), dev)
+    _check("depth", depth, torch.float32, (n,), dev)
+    _check("order", order, torch.int64, (k,), dev)
+    _check("offs", offs, torch.int64, (r_cap + 1,), dev)
+    ptrs = (None, None, None)
+    if sat is not None:
+        xy, conic, opacity = sat
+        _check("xy", xy, torch.float32, (n, 2), dev)
+        _check("conic", conic, torch.float32, (n, 3), dev)
+        _check("opacity", opacity, torch.float32, (n,), dev)
+        ptrs = (xy.data_ptr(), conic.data_ptr(), opacity.data_ptr())
+    if m < 0 or k > n or r_cap < 1:
+        raise ValueError(f"{m} pairs of {k} ranks over {n} gaussians in {r_cap} cell rows")
+    tile = torch.empty((m,), dtype=torch.int64, device=dev)
+    dep = torch.empty((m,), dtype=torch.float32, device=dev)
+    gauss = torch.empty((m,), dtype=torch.int64, device=dev)
+    quads = torch.empty((m, 4), dtype=torch.int16, device=dev) if sat is not None else None
+    if m == 0:
+        return tile, dep, gauss, quads
+    th, tw = tile_shape
+    err = _load("binning.cu").bin_emit(
+        order.data_ptr(), rect_min.data_ptr(), w_rect.data_ptr(), depth.data_ptr(), *ptrs,
+        offs.data_ptr(), r_cap, k, grid_x, tw, th, (tw - 1) * 0.5, (th - 1) * 0.5, int(bool(vis)),
+        tile.data_ptr(), dep.data_ptr(), gauss.data_ptr(),
+        None if quads is None else quads.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "bin_emit")
+    launch_counts["bin_emit"] += 1
+    return tile, dep, gauss, quads

@@ -99,8 +99,11 @@ def preprocess_cols(
     """
     th, tw = tile_shape
     dev = means3D.device
-    w2c = torch.as_tensor(np.asarray(camera.w2c), dtype=torch.float32, device=dev)
-    full = torch.as_tensor(np.asarray(camera.full_proj), dtype=torch.float32, device=dev)
+    # copies that do not wait for the device: a pageable source is staged
+    # before the copy returns
+    w2c = torch.as_tensor(np.asarray(camera.w2c), dtype=torch.float32).to(dev, non_blocking=True)
+    full = torch.as_tensor(np.asarray(camera.full_proj), dtype=torch.float32).to(
+        dev, non_blocking=True)
     mx, my, mz = means3D[:, 0], means3D[:, 1], means3D[:, 2]
 
     def apply_row(M, r):
