@@ -1460,25 +1460,34 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
     it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
     n_classes = ladder_classes(runner.rc, runner.H, runner.W)
     n_prog = 2 * n_classes        # the t = 0 progress renders, after tracking and mapping
+    # one K1 and one K2 launch a tracking class an iteration: the classes of
+    # one configured class are sized from each frame's counts (track_classes)
+    n_tk = it_t * summ["track_classes"]
     if backend == "stream":
-        want = {"blend_fwd": n_track * it_t + n_dens + n_prog, "blend_bwd": n_track * it_t,
+        want = {"blend_fwd": n_tk + n_dens + n_prog, "blend_bwd": n_tk,
                 "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
                 "gather_bwd": n_map * it_m, "bin_emit": n_bin}
     else:
-        want = {"blend_fwd": n_track * it_t + n_dens + n_prog + n_map * it_m * n_classes,
-                "blend_bwd": n_track * it_t + n_map * it_m * n_classes,
+        want = {"blend_fwd": n_tk + n_dens + n_prog + n_map * it_m * n_classes,
+                "blend_bwd": n_tk + n_map * it_m * n_classes,
                 "stream_fwd": 0, "stream_bwd": 0, "gather_bwd": n_map * it_m,
                 "bin_emit": n_bin}
     print(f"{tag} launches: {json.dumps(launches)} expected: {json.dumps(want)} plain calls: "
           f"{json.dumps(plain)}", flush=True)
     ok &= launches == want
     ok &= all(v == 0 for v in plain.values())
+    # one configured tracking class is the least of classes sized from the counts
+    ok &= runner.rc.track_bucket_spec is not None or summ["track_pairs_dropped"] == 0
     if not ok:
-        print(f"{tag} non-finite loss, plain calls or launch counts off", flush=True)
+        print(f"{tag} non-finite loss, plain calls, launch counts or tracking drops off",
+              flush=True)
     print(f"{tag} drops: densify_overflow {summ['densify_overflow']} bin_overflow_max "
           f"{summ['bin_overflow_max']} n_map_bin_dropped "
           f"{float(np.max(runner.last_mapping_trace['n_map_bin_dropped']))} n_grad_dropped "
-          f"{float(np.max(runner.last_mapping_trace['n_grad_dropped']))}", flush=True)
+          f"{float(np.max(runner.last_mapping_trace['n_grad_dropped']))} track_pairs_dropped "
+          f"{summ['track_pairs_dropped']}; tracking classes {summ['track_classes']} over "
+          f"{n_track} frames, slots {summ['track_slots']} for {summ['track_pairs']} pairs",
+          flush=True)
     errs = centre_err_cm(runner, ds, n_frames)
     print(f"{tag} camera-centre error vs GT (cm): " + " ".join(f"{e:.3f}" for e in errs),
           flush=True)
@@ -1668,8 +1677,9 @@ def cli_phase(cfg_path: str):
     n_eval = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["eval_every"] == 0)
     n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
     n_classes = ladder_classes(raster_config(cfg), FRAME["H"], FRAME["W"])
-    want = {"blend_fwd": (n - 1) * it_t + (n_map - 1) + (2 + n_eval) * n_classes,
-            "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
+    n_tk = it_t * summ["track_classes"]   # classes sized from each tracked frame's counts
+    want = {"blend_fwd": n_tk + (n_map - 1) + (2 + n_eval) * n_classes,
+            "blend_bwd": n_tk, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
             "gather_bwd": n_map * it_m, "bin_emit": n_bin}
     files = ("params.npz", "semantic_decoder.npz", "config.py", "params4.npz",
              "keyframe_time_indices4.npy", "semantic_decoder_4.npz")
@@ -2110,8 +2120,9 @@ def scannet_run(cfg_path: str, root: str, n: int, n_feat: int):
     n_eval = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["eval_every"] == 0)
     n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
     n_classes = ladder_classes(raster_config(cfg), SCANNET_FRAME["H"], SCANNET_FRAME["W"])
-    want = {"blend_fwd": (n - 1) * it_t + (n_map - 1) + (2 + n_eval) * n_classes,
-            "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
+    n_tk = it_t * summ["track_classes"]   # classes sized from each tracked frame's counts
+    want = {"blend_fwd": n_tk + (n_map - 1) + (2 + n_eval) * n_classes,
+            "blend_bwd": n_tk, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
             "gather_bwd": n_map * it_m, "bin_emit": n_bin}
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
@@ -2264,7 +2275,7 @@ def replica_run(cfg_path: str, root: str, n: int, tables=None, data=None, frame=
     n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
     n_cls = ladder_classes(rc, frame["H"], frame["W"])
     n_tcls = track_classes(rc, frame["H"], frame["W"])
-    n_track = 0 if gt else (n - 1) * it_t * n_tcls
+    n_track = it_t * summ["track_classes"]   # 0 with GT poses
     want = {"blend_fwd": n_track + (n_map - 1) + (2 + n_eval) * n_cls + n_map * it_m * n_cls,
             "blend_bwd": n_track + n_map * it_m * n_cls, "stream_fwd": 0, "stream_bwd": 0,
             "gather_bwd": n_map * it_m, "bin_emit": n_bin}
@@ -2683,8 +2694,9 @@ def real_shape_phase():
     n_eval = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["eval_every"] == 0)
     n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
     n_cls = ladder_classes(runner.rc, runner.H, runner.W)
-    want = {"blend_fwd": (n - 1) * it_t + densifies[0] + (2 + n_eval) * n_cls,
-            "blend_bwd": (n - 1) * it_t, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
+    n_tk = it_t * s["track_classes"]   # classes sized from each tracked frame's counts
+    want = {"blend_fwd": n_tk + densifies[0] + (2 + n_eval) * n_cls,
+            "blend_bwd": n_tk, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
             "gather_bwd": n_map * it_m, "bin_emit": n_bin}
     print(f"[real_shape] F = {width} (3 + num_semantic); {n} frames of the 200-frame "
           f"procedural room at "
@@ -2854,11 +2866,10 @@ def classic_phase():
     it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
     n_map = sum(1 for t in range(n) if t == 0 or (t + 1) % cfg["map_every"] == 0)
     n_cls = ladder_classes(rc, runner.H, runner.W)
-    n_tcls = track_classes(rc, runner.H, runner.W)
+    n_tk = it_t * summ["track_classes"]   # the tracked frames' classes, an iteration each
     ev = dcfg.events(it_m)
-    want = {"blend_fwd": (n - 1) * it_t * n_tcls + (n_map - 1) + 2 * n_cls
-            + n_map * it_m * n_cls,
-            "blend_bwd": (n - 1) * it_t * n_tcls + n_map * it_m * n_cls,
+    want = {"blend_fwd": n_tk + (n_map - 1) + 2 * n_cls + n_map * it_m * n_cls,
+            "blend_bwd": n_tk + n_map * it_m * n_cls,
             "stream_fwd": 0, "stream_bwd": 0, "gather_bwd": n_map * it_m, "bin_emit": n_bin}
     for e in events:
         print(f"{tag} densify at iteration {e['it']}: clones {int(e['clone'].sum())} splits "
@@ -2869,7 +2880,8 @@ def classic_phase():
     trace = runner.last_mapping_trace
     print(f"{tag} launches {json.dumps(launches)} expected {json.dumps(want)} ({n_map} mapping "
           f"phases of {len(ev) + 1} segments, events at {list(ev)}, each segment binning the "
-          f"window again; {n_tcls} tracking and {n_cls} ladder classes); plain calls "
+          f"window again; {summ['track_classes']} tracking classes over the frames and "
+          f"{n_cls} ladder classes); plain calls "
           f"{json.dumps(plain)}; classic_densify_overflow "
           f"{float(trace['classic_densify_overflow'][0]):.0f}", flush=True)
     pn = runner.finalize()
@@ -3261,7 +3273,7 @@ def parallel_map_run(cfg_path: str, record: dict):
     runner = SLAMRunner(cfg, dataset=ds, device="cuda", mesh=mesh)
     zero_counts(mesh)
     ok = True
-    n_track = n_map = n_dens = 0
+    n_map = n_dens = 0
     checks, casts = [], []
     t_run = time.time()
     for t in range(n):
@@ -3269,7 +3281,6 @@ def parallel_map_run(cfg_path: str, record: dict):
         line = f"{tag} frame {t}:"
         if t > 0:
             tl = runner.last_tracking_trace["loss"]
-            n_track += 1
             ok &= bool(np.isfinite(tl).all())
             line += f" tracking loss {tl[0]:.6g} -> {tl[-1]:.6g}"
         if t == 0 or (t + 1) % cfg["map_every"] == 0:
@@ -3291,7 +3302,8 @@ def parallel_map_run(cfg_path: str, record: dict):
     summ = runner.runtime_summary()
     it_t, it_m = cfg["tracking"]["num_iters"], cfg["mapping"]["num_iters"]
     n_prog = 2 * ladder_classes(runner.rc, runner.H, runner.W)
-    want0 = {"blend_fwd": n_track * it_t + n_dens + n_prog, "blend_bwd": n_track * it_t,
+    n_tk = it_t * summ["track_classes"]   # classes sized from each tracked frame's counts
+    want0 = {"blend_fwd": n_tk + n_dens + n_prog, "blend_bwd": n_tk,
              "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m, "gather_bwd": n_map * it_m}
     want_w = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": n_map * it_m,
               "stream_bwd": n_map * it_m, "gather_bwd": n_map * it_m}

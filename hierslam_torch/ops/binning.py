@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from hierslam_torch.ops import kernels
@@ -125,19 +126,13 @@ class SortedPairs(NamedTuple):
 
 def _emit_sort_sat(rect_min, rect_max, valid, depth, grid, tile_shape, r_cap,
                    emission_budgets, sat_margin, sat_floor, xy, conic,
-                   opacity, visible_budget) -> SortedPairs:
+                   opacity, visible_budget, exact: bool = False) -> SortedPairs:
     grid_y, grid_x = grid
     n = depth.shape[0]
     dev = depth.device
     num_tiles = grid_y * grid_x
     v_budget = min(visible_budget, n) if visible_budget > 0 else 0
     base_n = v_budget if v_budget else n
-    budgets = (tuple(emission_budgets) if emission_budgets is not None
-               else default_emission_budgets(base_n, r_cap))
-    budgets = tuple(min(b, base_n) for b in budgets)
-    if len(budgets) < r_cap:
-        raise ValueError("need one emission budget per cell row")
-    budgets = budgets[:r_cap]
     with_sat = sat_margin > 0.0
     if with_sat and (xy is None or conic is None or opacity is None):
         raise ValueError("sat_margin > 0 requires xy/conic/opacity")
@@ -148,10 +143,30 @@ def _emit_sort_sat(rect_min, rect_max, valid, depth, grid, tile_shape, r_cap,
     touched_all = torch.where(
         valid, w_rect * (rect_max[:, 1] - rect_min[:, 1]), torch.zeros_like(w_rect)
     )
-    n_dropped_emit = (touched_all - r_cap).clamp_min(0).sum()
-    touched = touched_all.clamp_max(r_cap)
-    neg_sorted, order = torch.sort(-touched, stable=True)
-    offs, n_dropped_budget = emission_offsets(neg_sorted, budgets)
+    if exact:
+        # every cell of every gaussian: as many cell rows as the largest
+        # rect holds (at least r_cap; a rect lies inside the grid, so it
+        # holds at most num_tiles cells), read to the host, each row taking
+        # every gaussian that reaches it
+        touched = touched_all
+        neg_sorted, order = torch.sort(-touched, stable=True)
+        cnt_gt = torch.searchsorted(neg_sorted, -torch.arange(max(num_tiles, r_cap), device=dev))
+        r_cap = max(r_cap, int((cnt_gt > 0).sum()))
+        cnt_gt = cnt_gt[:r_cap]
+        offs = torch.cat([cnt_gt.new_zeros(1), torch.cumsum(cnt_gt, 0)])
+        budgets = (base_n,) * r_cap
+        n_dropped_emit = n_dropped_budget = torch.zeros((), dtype=torch.int64, device=dev)
+    else:
+        budgets = (tuple(emission_budgets) if emission_budgets is not None
+                   else default_emission_budgets(base_n, r_cap))
+        budgets = tuple(min(b, base_n) for b in budgets)
+        if len(budgets) < r_cap:
+            raise ValueError("need one emission budget per cell row")
+        budgets = budgets[:r_cap]
+        n_dropped_emit = (touched_all - r_cap).clamp_min(0).sum()
+        touched = touched_all.clamp_max(r_cap)
+        neg_sorted, order = torch.sort(-touched, stable=True)
+        offs, n_dropped_budget = emission_offsets(neg_sorted, budgets)
     flat_tile, flat_depth, flat_gauss, flat_alpha = emit_pairs(
         rect_min, w_rect, touched, depth, order[:base_n], budgets, grid_x, tile_shape,
         bool(v_budget), (xy, conic, opacity.reshape(-1)) if with_sat else None, offs)
@@ -377,17 +392,18 @@ def bin_bucketed(
     visible_budget: int = 0,
 ) -> BucketedLists:
     """Rank-bucketed per-tile depth-ordered lists (see :class:`BucketedLists`)."""
-    grid_y, grid_x = grid
-    num_tiles = grid_y * grid_x
-    n = depth.shape[0]
-    spec = resolve_bucket_spec(bucket_spec, num_tiles)
     sp = _emit_sort_sat(
         rect_min, rect_max, valid, depth, grid, tile_shape,
         max_tiles_per_gaussian, emission_budgets, sat_margin, sat_floor,
         xy, conic, opacity, visible_budget,
     )
+    return _bucket(sp, resolve_bucket_spec(bucket_spec, grid[0] * grid[1]), depth.shape[0])
+
+
+def _bucket(sp: SortedPairs, spec, n: int) -> BucketedLists:
+    """The lists of the resolved classes ``spec``, tiles ranked by need."""
     s_gauss, starts, counts, k_eff = sp.s_gauss, sp.starts, sp.counts, sp.k_eff
-    dev = depth.device
+    dev = k_eff.device
     rank_order = torch.sort(-k_eff, stable=True).indices
     s_gauss_pad = torch.cat([s_gauss, torch.full((1,), -1, dtype=torch.int64, device=dev)])
     ids_out, idx_out = [], []
@@ -418,6 +434,69 @@ def bin_bucketed(
         vis_ids=vis_ids,
         rank_of=rank_of,
     )
+
+
+def need_spec(need, k_min: int) -> Tuple[Tuple[int, int], ...]:
+    """Classes that hold every tile's need (a host array): ``k_min`` for a
+    need up to ``k_min``, else the least ``k_min * 2**j`` at or above it;
+    the classes no tile takes are left out."""
+    ks = [k_min]
+    top = int(need.max()) if len(need) else 0
+    while ks[-1] < top:
+        ks.append(2 * ks[-1])
+    spec = tuple((int(((need > k // 2) & (need <= k)).sum()), k) for k in reversed(ks[1:]))
+    return tuple(e for e in spec if e[0] > 0) + ((-1, k_min),)
+
+
+def bin_to_need(
+    rect_min: torch.Tensor,
+    rect_max: torch.Tensor,
+    valid: torch.Tensor,
+    depth: torch.Tensor,
+    grid: Tuple[int, int],
+    bucket_spec,
+    tile_shape: Tuple[int, int],
+    max_tiles_per_gaussian: int = 16,
+    sat_margin: float = 0.0,
+    sat_floor: int = 64,
+    xy: Optional[torch.Tensor] = None,
+    conic: Optional[torch.Tensor] = None,
+    opacity: Optional[torch.Tensor] = None,
+):
+    """:func:`bin_bucketed` with classes sized from the tiles' own needs,
+    read once to the host.  One class ``((-1, k),)`` is a floor, not a
+    cap: every cell of every gaussian is emitted (no emission budget, as
+    many cell rows as the largest rect holds) and the classes are
+    :func:`need_spec` of the needs, so that no pair is dropped; where no
+    tile needs more than ``k`` and no rect has more than
+    ``max_tiles_per_gaussian`` cells the lists are :func:`bin_bucketed`'s
+    to the bit.  A ladder of several classes is kept as given, with its
+    emission budgets and its cuts.  -> (BucketedLists, host counters:
+    ``pairs`` kept, ``slots`` (the classes' n_b k_b summed), ``classes``
+    that hold a tile, ``tiles``, ``pairs_dropped`` (pairs the emission and
+    the classes left out; saturation-masked pairs are not dropped))."""
+    num_tiles = grid[0] * grid[1]
+    spec = tuple((int(a), int(b)) for a, b in bucket_spec)
+    flat = len(spec) == 1
+    sp = _emit_sort_sat(
+        rect_min, rect_max, valid, depth, grid, tile_shape,
+        max_tiles_per_gaussian, None, sat_margin, sat_floor, xy, conic, opacity, 0,
+        exact=flat,
+    )
+    host = torch.cat([sp.k_eff, sp.n_dropped_pre.reshape(1)]).cpu().numpy()
+    need = host[:-1]
+    spec = resolve_bucket_spec(need_spec(need, spec[0][1]) if flat else spec, num_tiles)
+    ranked = -np.sort(-need)
+    kept = dropped = off = 0
+    for n_b, k_b in spec:
+        part = ranked[off:off + n_b]
+        off += n_b
+        kept += int(np.minimum(part, k_b).sum())
+        dropped += int(np.maximum(part - k_b, 0).sum())
+    counters = dict(pairs=kept, slots=sum(n_b * k_b for n_b, k_b in spec),
+                    classes=sum(1 for n_b, _ in spec if n_b > 0), tiles=num_tiles,
+                    pairs_dropped=dropped + int(host[-1]))
+    return _bucket(sp, spec, depth.shape[0]), counters
 
 
 class StreamLists(NamedTuple):

@@ -47,7 +47,8 @@ from hierslam_torch.slam.densify_classic import DensifyConfig
 from hierslam_torch.slam.keyframes import Keyframe, KeyframeStore, keyframe_selection_overlap
 from hierslam_torch.slam.losses import LossConfig, mlp_init
 from hierslam_torch.slam.mapping import PruneConfig, make_densifier, make_mapper
-from hierslam_torch.slam.tracking import apply_gt_pose, est_w2c, make_tracker, propagate_pose
+from hierslam_torch.slam.tracking import (TRACK_COUNTERS, apply_gt_pose, est_w2c, make_tracker,
+                                          propagate_pose)
 from hierslam_torch.utils import io as uio
 from hierslam_torch.utils import trace
 from hierslam_torch.utils.convert import from_jax_numpy
@@ -159,6 +160,7 @@ class SLAMRunner:
             lr_trans=tcfg["lrs"]["cam_trans"], num_iters=tcfg["num_iters"],
             use_cache=bool(config.get("track_use_cache", True)), device=dev,
         )
+        self.track_counters = self.tracker.counters   # the totals ``stats`` mirrors
         mcfg = config["mapping"]
         map_loss = LossConfig(
             use_sil_for_loss=mcfg["use_sil_for_loss"], sil_thres=mcfg["sil_thres"],
@@ -242,6 +244,7 @@ class SLAMRunner:
             compactions=0, slots_reclaimed=0, emergency_pruned=0, progress_failed=0,
             map_broadcast_bytes=0, map_broadcast_s=0.0, map_collective_s=0.0,
             **{stat: 0 for stat in STREAM_COUNTERS.values()},
+            **dict(self.track_counters),
         )
         self.overflow_warn_threshold = int(
             config.get("raster", {}).get("overflow_warn_threshold", 100_000))
@@ -492,6 +495,12 @@ class SLAMRunner:
                     p_b, bloss, maxrad, trace_, carry = self.tracker.continue_round(
                         p_b, v_b["active"], im, depth, t, carry)
             bloss_f = float(bloss)
+            n_td = self.track_counters["track_pairs_dropped"] - self.stats["track_pairs_dropped"]
+            self.stats.update(self.track_counters)
+            if n_td > self.overflow_warn_threshold:
+                warnings.warn(f"frame {t}: tracking binning dropped {n_td} (gaussian, tile) "
+                              "pairs (a tracking ladder of several classes cuts longer lists)")
+                self.logger.log(t, n_track_bin_dropped=n_td)
             self._merge_params(p_b)
             self.variables["max_2D_radius"][: self.bucket] = maxrad
             self.logger.log(t, tracking_loss=bloss_f)
@@ -721,6 +730,7 @@ class SLAMRunner:
             "map_broadcast_s": s["map_broadcast_s"],
             "map_collective_s": s["map_collective_s"],
             **{stat: s[stat] for stat in STREAM_COUNTERS.values()},
+            **{stat: s[stat] for stat in TRACK_COUNTERS},
             "n_active": int(self.variables["active"].sum()),
         }
 

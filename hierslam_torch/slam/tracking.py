@@ -19,8 +19,13 @@ from hierslam_torch.core import transforms
 from hierslam_torch.ops.rasterize import RasterConfig, RenderOutput
 from hierslam_torch.ops.render_tracked import build_track_cache, render_tracked
 from hierslam_torch.slam.losses import LossConfig, render_gaussians, tracking_loss
+from hierslam_torch.utils.trace import span
 
 Params = Dict[str, torch.Tensor]
+
+# the pose caches' binning counters (render_tracked.TrackCache.counters), summed
+TRACK_COUNTERS = ("track_pairs", "track_slots", "track_classes", "track_tiles",
+                  "track_pairs_dropped")
 
 
 def propagate_pose(params: Params, time_idx: int, forward_prop: bool = True) -> Params:
@@ -74,8 +79,13 @@ def make_tracker(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
     the per-frame pose cache (``ops/render_tracked.py``), built at the
     round's start pose with a ``margin_px`` rect margin; without, every
     iteration bins afresh and renders through ``render_gaussians`` with
-    the pose gradient."""
+    the pose gradient.  ``track.counters`` sums the caches' binning
+    counters (:data:`TRACK_COUNTERS`, host integers) since construction.
+    While a profiler records, each cache build is an ``hs.track.cache``
+    span and each iteration (render to Adam step) an ``hs.track.iter``
+    span."""
     dev = resolve_device(device)
+    counters = dict.fromkeys(TRACK_COUNTERS, 0)
     if raster_cfg.track_sat_margin >= 0.0:
         raster_cfg = _dc_replace(raster_cfg, sat_margin=raster_cfg.track_sat_margin)
     if raster_cfg.track_bucket_spec is not None:
@@ -91,8 +101,11 @@ def make_tracker(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
         t_idx = int(time_idx)
         q_cur, t_cur = carry_in[0], carry_in[1]
         if use_cache:
-            cache = build_track_cache(params, active, q_cur, t_cur, camera, raster_cfg,
-                                      margin_px=margin_px)
+            with span("hs.track.cache"):
+                cache = build_track_cache(params, active, q_cur, t_cur, camera, raster_cfg,
+                                          margin_px=margin_px)
+            for k, v in cache.counters.items():
+                counters[f"track_{k}"] += v
 
         def loss_fn(q, t):
             if use_cache:
@@ -110,28 +123,29 @@ def make_tracker(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
         (q, t, mq, vq, mt, vt, cnt, bq, bt, bloss, maxrad) = carry_in
         losses, d_ls, i_ls = [], [], []
         for _ in range(num_iters):
-            q = q.detach().requires_grad_(True)
-            t = t.detach().requires_grad_(True)
-            loss, radii, parts = loss_fn(q, t)
-            gq, gt = torch.autograd.grad(loss, (q, t))
-            loss = loss.detach()
-            q, t = q.detach(), t.detach()
-            cnt = cnt + 1
-            bc1, bc2 = 1 - 0.9**cnt, 1 - 0.999**cnt
-            mq = 0.9 * mq + 0.1 * gq
-            vq = 0.999 * vq + 0.001 * gq * gq
-            mt = 0.9 * mt + 0.1 * gt
-            vt = 0.999 * vt + 0.001 * gt * gt
-            q = q - lr_quat * (mq / bc1) / (torch.sqrt(vq / bc2) + 1e-8)
-            t = t - lr_trans * (mt / bc1) / (torch.sqrt(vt / bc2) + 1e-8)
-            better = loss < bloss
-            bq = torch.where(better, q, bq)
-            bt = torch.where(better, t, bt)
-            bloss = torch.minimum(loss, bloss)
-            maxrad = torch.where(radii > 0, torch.maximum(maxrad, radii.float()), maxrad)
-            losses.append(loss)
-            d_ls.append(parts["depth"].detach())
-            i_ls.append(parts["im"].detach())
+            with span("hs.track.iter"):
+                q = q.detach().requires_grad_(True)
+                t = t.detach().requires_grad_(True)
+                loss, radii, parts = loss_fn(q, t)
+                gq, gt = torch.autograd.grad(loss, (q, t))
+                loss = loss.detach()
+                q, t = q.detach(), t.detach()
+                cnt = cnt + 1
+                bc1, bc2 = 1 - 0.9**cnt, 1 - 0.999**cnt
+                mq = 0.9 * mq + 0.1 * gq
+                vq = 0.999 * vq + 0.001 * gq * gq
+                mt = 0.9 * mt + 0.1 * gt
+                vt = 0.999 * vt + 0.001 * gt * gt
+                q = q - lr_quat * (mq / bc1) / (torch.sqrt(vq / bc2) + 1e-8)
+                t = t - lr_trans * (mt / bc1) / (torch.sqrt(vt / bc2) + 1e-8)
+                better = loss < bloss
+                bq = torch.where(better, q, bq)
+                bt = torch.where(better, t, bt)
+                bloss = torch.minimum(loss, bloss)
+                maxrad = torch.where(radii > 0, torch.maximum(maxrad, radii.float()), maxrad)
+                losses.append(loss)
+                d_ls.append(parts["depth"].detach())
+                i_ls.append(parts["im"].detach())
         carry = (q, t, mq, vq, mt, vt, cnt, bq, bt, bloss, maxrad)
         out = dict(params)
         rots = params["cam_unnorm_rots"].clone()
@@ -157,4 +171,5 @@ def make_tracker(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
         return track_round(params, active, im_gt, depth_gt, time_idx, init)
 
     track.continue_round = track_round
+    track.counters = counters
     return track

@@ -333,7 +333,10 @@ def test_tum_run_slam_matches_jax(tmp_path, same_draws):  # noqa: F811
     cfg["mapping"]["num_iters"] = 5
     cfg["raster"]["max_per_tile"] = 1024
     tcfg = dict(cfg, workdir=str(tmp_path / "torch"), raster=dict(cfg["raster"], backend="pallas"))
-    jcfg = dict(cfg, raster=dict(cfg["raster"], backend="xla"))
+    # up to ~2,600 pairs a tile: the port's tracker sizes its classes from the
+    # counts (1024 slots the least), so the JAX tracker takes one class that
+    # holds every tile's pairs
+    jcfg = dict(cfg, raster=dict(cfg["raster"], backend="xla", track_max_per_tile=4096))
     pt, st, rt = t_run_slam(tcfg, device="cpu")
     pj, sj, rj = j_run_slam(jcfg)
 

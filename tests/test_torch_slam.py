@@ -183,7 +183,10 @@ def test_tracker_matches():
     im, dep = render_gt(pn, q_gt, t_gt, jc)
     cfg = dict(use_sil_for_loss=True, sil_thres=0.99, w_im=0.5, w_depth=1.0)
     n = pn["means3D"].shape[0]
-    trk_j = jtrk.make_tracker(jc, jloss.LossConfig(**cfg), JRasterConfig(**RC), 4e-4, 2e-3, 5)
+    # up to 302 pairs a tile: the port's 256 slots are its least class, not a
+    # cap, so the JAX tracker takes one class that holds every tile's pairs
+    trk_j = jtrk.make_tracker(jc, jloss.LossConfig(**cfg),
+                              JRasterConfig(**dict(RC, max_per_tile=512)), 4e-4, 2e-3, 5)
     pj, blj, mrj, trj, cj = trk_j({k: jnp.asarray(v) for k, v in pn.items()},
                                   jnp.ones(n, bool), jnp.zeros(n), jnp.asarray(im),
                                   jnp.asarray(dep), 1)

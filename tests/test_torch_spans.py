@@ -27,7 +27,7 @@ N_FRAMES, MAP_ITERS = 3, 4
 MAP_FRAMES = (0, 2)
 TOP = ("hs.frame", "hs.track", "hs.report", "hs.densify", "hs.keyframes", "hs.window", "hs.map",
        "hs.keyframe_add", "hs.checkpoint")
-INNER = ("hs.map.setup", "hs.map.bin", "hs.map.iter")
+INNER = ("hs.map.setup", "hs.map.bin", "hs.map.iter", "hs.track.cache", "hs.track.iter")
 
 
 @pytest.fixture(scope="module")
