@@ -12,7 +12,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. environment: card name and power limit (nvidia-smi), kernel build with
    nvcc from ``hierslam_torch/csrc`` (one nvcc per source, in parallel),
-   the ptxas report of K1-K5 and ``bin_emit`` (registers, shared memory,
+   the ptxas report of K1-K5, ``bin_emit`` and the tracker's projection
+   (``csrc/track.cu``) (registers, shared memory,
    spill bytes; a spill in any instantiation fails the run);
 2. kernels: K1-K4 against their plain PyTorch versions at F = 1, 3, 29,
    32, 33, 64, 77 and 128 (every feature bucket's edges, the widest the
@@ -63,7 +64,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    its plain version, to the bit, twice, timed beside ``index_add_``;
    ``bin_emit`` on frame 0's first stream binning's pair emission against
    its plain version (a boolean-mask compaction a cell row) on the same
-   card tensors, to the bit, twice, timed;
+   card tensors, to the bit, twice, timed; ``track_project_fwd`` and
+   ``track_project_bwd`` on frame 6's first tracking iteration (its pose
+   cache and the cotangent K2 handed back) against
+   ``render_tracked.track_project_plain`` and its autograd on the same card
+   tensors: the table and mask to the bit, each kernel twice to the bit,
+   the pose gradient within 1e-3, timed (``check_track_project``);
 5. ladder: the same config with ``raster.backend="pallas"`` on 3 frames
    (mapping at t=0 and, after a densify, at t=2), with its own count check;
 6. cli, the disk-to-eval path: the 8 procedural frames written in the
@@ -185,8 +191,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 The launch counts of phases 4-6 include the two t = 0 progress renders (K1
 at each ``bucket_spec`` class) that ``SLAMRunner.step`` makes.  Every count
 check holds ``bin_emit`` at one launch a binning on the card that emits a
-pair (``count_binnings``) and the plain versions, the emission's
-(``binning.plain_counts``) among them, at 0 calls.  Every ladder
+pair (``count_binnings``), ``track_project_fwd`` and ``track_project_bwd``
+at one launch each a cached tracking iteration (``track_launches``), and
+the plain versions, the emission's (``binning.plain_counts``) and the
+projection's (``render_tracked.plain_counts``) among them, at 0 calls.  Every ladder
 render launches K1 (and K2) once a capacity class, each class at its true
 tile ids into buffers the classes share; the K1/K2 checks on tables the
 main path recorded take those tile ids.
@@ -940,6 +948,13 @@ def k1_record(table, ok, grid_x, tile_shape=TILE, tile_ids=None, out=None, n_til
             None if tile_ids is None else tile_ids.clone(), rows)
 
 
+def differentiable(table) -> bool:
+    """Whether a K1 table is a differentiable render's: it, or the run of
+    slots whose class it is (``render_pallas.blend_run``, the tracker's),
+    requires a gradient."""
+    return table.requires_grad or (table._base is not None and table._base.requires_grad)
+
+
 @contextlib.contextmanager
 def recording_blend_fwd(seen: list, n_feat: Optional[int] = None, pick=None,
                         outputs: Optional[list] = None):
@@ -1030,6 +1045,95 @@ def recording_emit_pairs(seen: list):
         yield
     finally:
         binning.bin_stream, binning.emit_pairs = bin_stream, emit
+
+
+@contextlib.contextmanager
+def recording_track_project(seen: list):
+    """While active, the first tracking iteration's projection leaves in
+    ``seen``, in host memory, the arguments of its ``kernels.track_project_fwd``
+    call (the pose cache's rows, valid, tile, the 28 scalars, grid_x, image
+    and tile shape), then the table's cotangent its ``track_project_bwd``
+    got.  Both wrappers are wrapped from here, the package has no hook for
+    them; every call still goes to the kernels."""
+    from hierslam_torch.ops import kernels
+
+    fwd, bwd = kernels.track_project_fwd, kernels.track_project_bwd
+
+    def recording_fwd(*args):
+        if not seen:
+            seen.append(moved(tuple(args), "cpu"))
+        return fwd(*args)
+
+    def recording_bwd(rows, gtable, scalars, img_shape):
+        if len(seen) == 1:
+            seen.append(gtable.cpu())
+        return bwd(rows, gtable, scalars, img_shape)
+
+    kernels.track_project_fwd, kernels.track_project_bwd = recording_fwd, recording_bwd
+    try:
+        yield
+    finally:
+        kernels.track_project_fwd, kernels.track_project_bwd = fwd, bwd
+
+
+def check_track_project(name: str, rec, reps: int = 20):
+    """``track_project_fwd`` and ``track_project_bwd`` against the plain
+    version (``render_tracked.track_project_plain`` and its autograd) on a
+    recorded tracking iteration (``recording_track_project``), on the same
+    card tensors: two launches of each, the forward's table and mask equal
+    to the bit to the plain version's, the backward's twice to the bit and
+    within 1e-3 (relative to the largest entry) of the plain gradient of the
+    pose's 12 scalars.  CUDA-event medians of ``reps`` launches and of the
+    plain version on the card.  Returns (JSON rows, ok)."""
+    import torch
+
+    from hierslam_torch.ops import kernels, render_tracked
+
+    args, gtab = moved(rec[0], torch.device("cuda")), rec[1].cuda()
+    rows, valid, tile, sc, grid_x, img_shape, tile_shape = args
+    S, rc = rows.shape
+
+    def bits(x):
+        return x.view(torch.int32) if x.is_floating_point() else x
+
+    ref = render_tracked.track_project_plain(*args)
+    outs = [kernels.track_project_fwd(*args) for _ in range(2)]
+    differ = sum(int((bits(x) != bits(y)).sum()) for out in outs for x, y in zip(out, ref))
+    sc_ = sc.clone().requires_grad_(True)
+    plain_tab = render_tracked.track_project_plain(rows, valid, tile, sc_, grid_x, img_shape,
+                                                   tile_shape)[0]
+    gref = torch.autograd.grad(plain_tab, sc_, gtab, retain_graph=True)[0]
+    gs = [kernels.track_project_bwd(rows, gtab, sc, img_shape) for _ in range(2)]
+    rel = float((gs[0][:12] - gref[:12]).abs().max() / gref[:12].abs().max())
+    repeat = torch.equal(bits(gs[0]), bits(gs[1]))
+    good = differ == 0 and repeat and rel <= 1e-3 and bool((gs[0][12:] == 0).all())
+    fwd_ms = cuda_ms(lambda: kernels.track_project_fwd(*args), reps)
+    bwd_ms = cuda_ms(lambda: kernels.track_project_bwd(rows, gtab, sc, img_shape), reps)
+    plain_ms = cuda_ms(lambda: render_tracked.track_project_plain(*args), reps)
+    plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(plain_tab, sc_, gtab, retain_graph=True),
+                           reps)
+    # forward: each slot's row, valid and tile read, its table row and ok
+    # written; backward: its row and its cotangent row read.  Operations: ~110
+    # a slot forward (~170 aniso), about twice that backward
+    ops = 110 if rc == 8 else 170
+    fb, fb_by = bound(S * (4 * rc + 5 + 41), S * ops)
+    bb, bb_by = bound(S * (4 * rc + 40), 2 * S * ops)
+    live = int(outs[0][1].sum())
+    print(f"[kernels] {name} track_project: S={S} slots ({rc} columns a row, {live} ok) "
+          f"grid_x={grid_x} image {img_shape[1]}x{img_shape[0]}: forward twice equal to the "
+          f"bit to the plain version: {differ == 0} ({differ} elements differ); backward twice "
+          f"equal to the bit: {repeat}, max |kernel - plain| / max |plain| over the pose's 12 "
+          f"{rel:.3e}; track_project_fwd {fwd_ms:.4f} ms (bound {fb:.4f} ms by {fb_by}, "
+          f"{100 * fb / fwd_ms:.1f}%), track_project_bwd {bwd_ms:.4f} ms (bound {bb:.4f} ms by "
+          f"{bb_by}, {100 * bb / bwd_ms:.1f}%); plain forward {plain_ms:.3f} ms, plain backward "
+          f"{plain_bwd_ms:.3f} ms", flush=True)
+    rows_out = [dict(kernel=k, name=f"{k}[{name}]", route="cuda",
+                     source="hierslam_torch/csrc/track.cu", replaces=None, ms=ms, plain_ms=p,
+                     bound_ms=b, bound_by=by, library_ms=None, max_abs_err=err)
+                for k, ms, p, b, by, err in (
+                    ("track_project_fwd", fwd_ms, plain_ms, fb, fb_by, float(differ)),
+                    ("track_project_bwd", bwd_ms, plain_bwd_ms, bb, bb_by, rel))]
+    return rows_out, good
 
 
 OPS_PER_SAT_PAIR = 9 * 9 + 4 * 9   # 9 corner exponents of 9 operations, 4 quads of ~9 (exp one)
@@ -1357,13 +1461,14 @@ def count_binnings() -> None:
 def reset_counts() -> None:
     """Zero the kernels' launch counts, the plain versions' call counts and
     ``BINNINGS``."""
-    from hierslam_torch.ops import binning, gather_vjp, kernels, render_pallas, render_stream
+    from hierslam_torch.ops import (binning, gather_vjp, kernels, render_pallas, render_stream,
+                                    render_tracked)
 
     count_binnings()
     kernels.reset_launch_counts()
     BINNINGS[0] = 0
     for counts in (render_pallas.plain_counts, render_stream.plain_counts,
-                   gather_vjp.plain_counts, binning.plain_counts):
+                   gather_vjp.plain_counts, binning.plain_counts, render_tracked.plain_counts):
         for k in counts:
             counts[k] = 0
 
@@ -1371,12 +1476,24 @@ def reset_counts() -> None:
 def read_counts():
     """-> (kernel launches, plain-version calls, binnings on the card that
     emitted a pair) since ``reset_counts``."""
-    from hierslam_torch.ops import binning, gather_vjp, kernels, render_pallas, render_stream
+    from hierslam_torch.ops import (binning, gather_vjp, kernels, render_pallas, render_stream,
+                                    render_tracked)
 
     return (dict(kernels.launch_counts),
             dict(render_pallas.plain_counts, **render_stream.plain_counts,
-                 **gather_vjp.plain_counts, **binning.plain_counts),
+                 **gather_vjp.plain_counts, **binning.plain_counts,
+                 **render_tracked.plain_counts),
             BINNINGS[0])
+
+
+def track_launches(summ, rc, H: int, W: int, it_t: int):
+    """The projection kernels' launches of a run: one ``track_project_fwd``
+    and one ``track_project_bwd`` a cached tracking iteration, ``it_t`` a
+    pose cache; each cache adds the grid's tiles to ``track_tiles`` (0 with
+    GT poses or the uncached tracker).  ``summ`` None: none."""
+    gy, gx = rc.grid(H, W)
+    n = 0 if summ is None else it_t * summ["track_tiles"] // (gy * gx)
+    return {"track_project_fwd": n, "track_project_bwd": n}
 
 
 def ladder_classes(rc, H: int, W: int) -> int:
@@ -1390,7 +1507,8 @@ def ladder_classes(rc, H: int, W: int) -> int:
 
 def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
                map_every: Optional[int] = None, record: Optional[list] = None,
-               gather_record: Optional[list] = None, emit_record: Optional[list] = None):
+               gather_record: Optional[list] = None, emit_record: Optional[list] = None,
+               track_record: Optional[list] = None):
     """Drive ``SLAMRunner.step`` over ``n_frames`` procedural frames at
     1200x680 with the flagship config (``backend``/``map_every`` override
     it when given).  Launch counts are zeroed just before the run and read
@@ -1398,7 +1516,9 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
     tracking table is left in it; with ``gather_record``, the inputs of the
     first K5 launch (frame 0's first mapping backward); with
     ``emit_record``, those of frame 0's first stream binning's pair
-    emission.  Returns (ok, launches, summary)."""
+    emission; with ``track_record``, frame ``RECORD_FRAME``'s first
+    tracking projection (``recording_track_project``).  Returns (ok,
+    launches, summary)."""
     import numpy as np
     import torch
 
@@ -1434,6 +1554,8 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
                 stack.enter_context(recording_gather_bwd(gather_record))
             if emit_record is not None and t == 0:
                 stack.enter_context(recording_emit_pairs(emit_record))
+            if track_record is not None and t == RECORD_FRAME:
+                stack.enter_context(recording_track_project(track_record))
             runner.step(t)
         line = f"{tag} frame {t}:"
         if t > 0:
@@ -1472,6 +1594,7 @@ def slam_phase(cfg_path: str, backend: Optional[str] = None, n_frames: int = 8,
                 "blend_bwd": n_tk + n_map * it_m * n_classes,
                 "stream_fwd": 0, "stream_bwd": 0, "gather_bwd": n_map * it_m,
                 "bin_emit": n_bin}
+    want.update(track_launches(summ, runner.rc, runner.H, runner.W, it_t))
     print(f"{tag} launches: {json.dumps(launches)} expected: {json.dumps(want)} plain calls: "
           f"{json.dumps(plain)}", flush=True)
     ok &= launches == want
@@ -1680,7 +1803,8 @@ def cli_phase(cfg_path: str):
     n_tk = it_t * summ["track_classes"]   # classes sized from each tracked frame's counts
     want = {"blend_fwd": n_tk + (n_map - 1) + (2 + n_eval) * n_classes,
             "blend_bwd": n_tk, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
-            "gather_bwd": n_map * it_m, "bin_emit": n_bin}
+            "gather_bwd": n_map * it_m, "bin_emit": n_bin,
+            **track_launches(summ, raster_config(cfg), FRAME["H"], FRAME["W"], it_t)}
     files = ("params.npz", "semantic_decoder.npz", "config.py", "params4.npz",
              "keyframe_time_indices4.npy", "semantic_decoder_4.npz")
     missing = [f for f in files if not os.path.isfile(os.path.join(run_dir, f))]
@@ -1883,7 +2007,8 @@ def eval_novel_view_phase(finished, final):
     n_show = sum(1 for t in (0, n // 2) if t < n)
     n_cls = ladder_classes(raster_config(cfg), FRAME["H"], FRAME["W"])
     want = {"blend_fwd": (n_eval + n_show) * n_cls, "blend_bwd": 0, "stream_fwd": 0,
-            "stream_bwd": 0, "gather_bwd": 0, "bin_emit": n_bin}
+            "stream_bwd": 0, "gather_bwd": 0, "bin_emit": n_bin,
+            **track_launches(None, raster_config(cfg), FRAME["H"], FRAME["W"], 0)}
     eval_dir = os.path.join(run_dir, "eval")
     n_levels = len(SEM_LEVELS)
     expect = {"renders": n_eval, "renders_depth": n_eval, "rgb": n_eval, "depth": n_eval,
@@ -2123,7 +2248,9 @@ def scannet_run(cfg_path: str, root: str, n: int, n_feat: int):
     n_tk = it_t * summ["track_classes"]   # classes sized from each tracked frame's counts
     want = {"blend_fwd": n_tk + (n_map - 1) + (2 + n_eval) * n_classes,
             "blend_bwd": n_tk, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
-            "gather_bwd": n_map * it_m, "bin_emit": n_bin}
+            "gather_bwd": n_map * it_m, "bin_emit": n_bin,
+            **track_launches(summ, raster_config(cfg), SCANNET_FRAME["H"], SCANNET_FRAME["W"],
+                             it_t)}
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r[k] for r in recs for k in ("tracking_loss", "mapping_loss") if k in r]
@@ -2262,7 +2389,8 @@ def replica_run(cfg_path: str, root: str, n: int, tables=None, data=None, frame=
             for key, k in (("tracking", 1024), ("mapping", 4096)):
                 stack.enter_context(recording_blend_fwd(
                     tables.setdefault(key, []),
-                    pick=lambda tab, k=k: tab.requires_grad and tuple(tab.shape[:2]) == (128, k)))
+                    pick=lambda tab, k=k: (differentiable(tab)
+                                           and tuple(tab.shape[:2]) == (128, k))))
         (pn, summ, res), text, eval_s = run_cli([wrapper])
     launches, plain, n_bin = read_counts()
     wall = time.time() - t0
@@ -2278,7 +2406,8 @@ def replica_run(cfg_path: str, root: str, n: int, tables=None, data=None, frame=
     n_track = it_t * summ["track_classes"]   # 0 with GT poses
     want = {"blend_fwd": n_track + (n_map - 1) + (2 + n_eval) * n_cls + n_map * it_m * n_cls,
             "blend_bwd": n_track + n_map * it_m * n_cls, "stream_fwd": 0, "stream_bwd": 0,
-            "gather_bwd": n_map * it_m, "bin_emit": n_bin}
+            "gather_bwd": n_map * it_m, "bin_emit": n_bin,
+            **track_launches(summ, rc, frame["H"], frame["W"], it_t)}
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r[k] for r in recs for k in ("tracking_loss", "mapping_loss") if k in r]
@@ -2697,7 +2826,8 @@ def real_shape_phase():
     n_tk = it_t * s["track_classes"]   # classes sized from each tracked frame's counts
     want = {"blend_fwd": n_tk + densifies[0] + (2 + n_eval) * n_cls,
             "blend_bwd": n_tk, "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m,
-            "gather_bwd": n_map * it_m, "bin_emit": n_bin}
+            "gather_bwd": n_map * it_m, "bin_emit": n_bin,
+            **track_launches(s, runner.rc, runner.H, runner.W, it_t)}
     print(f"[real_shape] F = {width} (3 + num_semantic); {n} frames of the 200-frame "
           f"procedural room at "
           f"{report['image'][0]}x{report['image'][1]}, tools/real_shape_run_torch.py's "
@@ -2856,7 +2986,7 @@ def classic_phase():
     reset_counts()
     t0 = time.time()
     with recording_densify(events, after=lambda: armed.__setitem__(0, True)), \
-            recording_blend_fwd(tables, pick=lambda tab: armed[0] and tab.requires_grad):
+            recording_blend_fwd(tables, pick=lambda tab: armed[0] and differentiable(tab)):
         for t in range(n):
             runner.step(t)
     torch.cuda.synchronize()
@@ -2870,7 +3000,8 @@ def classic_phase():
     ev = dcfg.events(it_m)
     want = {"blend_fwd": n_tk + (n_map - 1) + 2 * n_cls + n_map * it_m * n_cls,
             "blend_bwd": n_tk + n_map * it_m * n_cls,
-            "stream_fwd": 0, "stream_bwd": 0, "gather_bwd": n_map * it_m, "bin_emit": n_bin}
+            "stream_fwd": 0, "stream_bwd": 0, "gather_bwd": n_map * it_m, "bin_emit": n_bin,
+            **track_launches(summ, rc, runner.H, runner.W, it_t)}
     for e in events:
         print(f"{tag} densify at iteration {e['it']}: clones {int(e['clone'].sum())} splits "
               f"{int(e['split'].sum())} pruned {e['pruned']} of {e['rows']} rows, overflow "
@@ -3004,7 +3135,7 @@ def aniso_tracking(state, cfg_of, ds, dev: str, frames, record=None):
     for use_cache in (True, False):
         r = SLAMRunner(cfg_of(use_cache), dataset=ds, device=dev)
         set_runner_state(r, state_to(state, dev))
-        with (recording_blend_fwd(record, pick=lambda tab: tab.requires_grad)
+        with (recording_blend_fwd(record, pick=differentiable)
               if record is not None and use_cache else contextlib.nullcontext()):
             for t in frames:
                 r.step(t)
@@ -3063,7 +3194,8 @@ def aniso_phase(final_state, small_state):
     per = len(ANISO_FRAMES) * it_t * n_tcls
     # the uncached tracker's renders gather the map: one K5 an iteration
     want = {"blend_fwd": 2 * per, "blend_bwd": 2 * per, "stream_fwd": 0, "stream_bwd": 0,
-            "gather_bwd": len(ANISO_FRAMES) * it_t, "bin_emit": n_bin}
+            "gather_bwd": len(ANISO_FRAMES) * it_t, "bin_emit": n_bin,
+            **track_launches(runs[True].runtime_summary(), rc, FRAME["H"], FRAME["W"], it_t)}
     ok = launches == want and not any(plain.values())
     for use_cache, r in runs.items():
         summ = r.runtime_summary()
@@ -3158,7 +3290,8 @@ def visualize_phase(finished):
     sizes = {png_size(os.path.join(viz_dir, f)) for f in got}
     n_cls = ladder_classes(raster_config(cfg), FRAME["H"], FRAME["W"])
     want = {"blend_fwd": len(shown) * n_cls, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0,
-            "gather_bwd": 0, "bin_emit": n_bin}
+            "gather_bwd": 0, "bin_emit": n_bin,
+            **track_launches(None, raster_config(cfg), FRAME["H"], FRAME["W"], 0)}
     print(f"{tag} python3 -m hierslam_torch.scripts.visualize {' '.join(argv[1:])} on the "
           f"[cli] run ({n} frames, F = {3 + sum(SEM_LEVELS)}, its semantic_decoder.npz): wrote "
           f"{len(got)} PNGs to {out}: {got} (expected {expect}), sizes "
@@ -3304,9 +3437,11 @@ def parallel_map_run(cfg_path: str, record: dict):
     n_prog = 2 * ladder_classes(runner.rc, runner.H, runner.W)
     n_tk = it_t * summ["track_classes"]   # classes sized from each tracked frame's counts
     want0 = {"blend_fwd": n_tk + n_dens + n_prog, "blend_bwd": n_tk,
-             "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m, "gather_bwd": n_map * it_m}
+             "stream_fwd": n_map * it_m, "stream_bwd": n_map * it_m, "gather_bwd": n_map * it_m,
+             **track_launches(summ, runner.rc, runner.H, runner.W, it_t)}
     want_w = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": n_map * it_m,
-              "stream_bwd": n_map * it_m, "gather_bwd": n_map * it_m}
+              "stream_bwd": n_map * it_m, "gather_bwd": n_map * it_m,
+              **track_launches(None, runner.rc, runner.H, runner.W, it_t)}
     for r, (launches, plain, n_bin) in enumerate(counts):
         want = dict(want0 if r == 0 else want_w, bin_emit=n_bin)
         print(f"{tag} rank {r} launches {json.dumps(launches)} expected {json.dumps(want)} "
@@ -3685,7 +3820,8 @@ def main() -> int:
           f"bytes) at P={P}: {json.dumps(dyn)}", flush=True)
     reported = all(any(k.startswith(name) for k in ptx)
                    for name in ("blend_fwd", "blend_bwd", "stream_fwd", "stream_bwd",
-                                "gather_bwd", "bin_emit"))
+                                "gather_bwd", "bin_emit", "track_fwd_kernel", "track_bwd_kernel",
+                                "track_bwd_finish"))
     if not reported or any(v.get("spill_stores", 1) + v.get("spill_loads", 1)
                            for v in ptx.values()):
         fail("a kernel spills registers to local memory (or its ptxas report is missing)")
@@ -3776,12 +3912,13 @@ def main() -> int:
                 fail(f"GPU run with the {backend} mapper disagrees with the CPU reference")
         print(f"[reference] done at {time.time() - t0:.1f} s", flush=True)
         runs = []
-        seen, gather_seen, emit_seen = [], [], []
+        seen, gather_seen, emit_seen, track_seen = [], [], [], []
         for i in range(args.repeat):
             good, launches, summ = slam_phase(cfg_path,
                                               record=seen if recorded is None else None,
                                               gather_record=gather_seen if i == 0 else None,
-                                              emit_record=emit_seen if i == 0 else None)
+                                              emit_record=emit_seen if i == 0 else None,
+                                              track_record=track_seen if i == 0 else None)
             if not good:
                 fail("SLAM phase (flagship as shipped)")
             runs.append(summ)
@@ -3804,6 +3941,14 @@ def main() -> int:
                 del emit_seen[:]
                 if not good:
                     fail("bin_emit check on the flagship's first mapping binning")
+                if len(track_seen) != 2:
+                    fail(f"no tracking projection of frame {RECORD_FRAME} was recorded")
+                r, good = check_track_project(f"frame {RECORD_FRAME} first tracking iteration",
+                                              track_seen)
+                rows += r
+                del track_seen[:]
+                if not good:
+                    fail("track_project check on the flagship's tracking cache")
         if args.repeat > 1:
             for key in ("tracking_iter_ms", "mapping_iter_ms"):
                 vals = [r[key] for r in runs]

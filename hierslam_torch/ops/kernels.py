@@ -32,11 +32,11 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# source -> extra flags.  stream.cu and binning.cu keep multiplies and adds
-# apart so that their discrete decisions round as the plain PyTorch versions
-# do (see there).
+# source -> extra flags.  stream.cu, binning.cu and track.cu keep multiplies
+# and adds apart so that their discrete decisions round as the plain PyTorch
+# versions do (see there).
 SOURCES = {"blend.cu": (), "stream.cu": ("-fmad=false",), "gather.cu": (),
-           "binning.cu": ("-fmad=false",)}
+           "binning.cu": ("-fmad=false",), "track.cu": ("-fmad=false",)}
 SMEM_BUDGET = 46 * 1024   # K2's dynamic shared memory per block, under the 48 KB default
 # K4's budget is above 48 KB (the launch asks for it): its shared copies of
 # the projection terms and the float4 features take 52 KB at F = 29 before
@@ -50,7 +50,8 @@ TILE_THREADS = 256        # most pixels a tile the kernels take (their launch bo
 
 # kernel launches since the last reset (one per launch, nowhere else)
 launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "stream_fwd": 0, "stream_bwd": 0,
-                 "gather_bwd": 0, "bin_emit": 0}
+                 "gather_bwd": 0, "bin_emit": 0, "track_project_fwd": 0,
+                 "track_project_bwd": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
@@ -153,6 +154,13 @@ def _load(source: str) -> ctypes.CDLL:
             lib.bin_emit.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                                      _I, _P, _P, _P, _P, _P]
             lib.bin_emit.restype = _I
+        elif source == "track.cu":
+            lib.track_project_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                                              _P, _P, _P]
+            lib.track_project_bwd.argtypes = [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P]
+            lib.track_bwd_blocks.argtypes = [_I]
+            for fn in (lib.track_project_fwd, lib.track_project_bwd, lib.track_bwd_blocks):
+                fn.restype = _I
         else:
             lib.stream_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
                                        _P, _P, _P]
@@ -252,11 +260,12 @@ def blend_fwd(table: torch.Tensor, ok: torch.Tensor, grid_x: int, tile_shape,
 
 
 def blend_bwd(table, ok, ft, last, mslot, gacc, gft, gmed, grid_x: int, tile_shape,
-              tile_ids: Optional[torch.Tensor] = None):
+              tile_ids: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None):
     """K2.  Residuals (final_T, last, mslot) from :func:`blend_fwd` and
     cotangents gacc [T_all, P, F+2], gft / gmed [T_all, P], read at row
     ``tile_ids[b]`` (b where None) for row b of the table -> d table
-    [T, K, 7+F], 0 on a row whose tile id lies outside those rows."""
+    [T, K, 7+F], 0 on a row whose tile id lies outside those rows, written
+    into ``out`` where given (every entry of it) or a new tensor."""
     T, K, C, th, tw, P = _tile_args(table, tile_shape)
     dev = table.device
     F = C - 7
@@ -270,7 +279,8 @@ def blend_bwd(table, ok, ft, last, mslot, gacc, gft, gmed, grid_x: int, tile_sha
     _check("gacc", gacc, torch.float32, (rows, P, F + 2), dev)
     _check("gft", gft, torch.float32, (rows, P), dev)
     _check("gmed", gmed, torch.float32, (rows, P), dev)
-    dtab = torch.empty((T, K, C), dtype=torch.float32, device=dev)
+    dtab = torch.empty((T, K, C), dtype=torch.float32, device=dev) if out is None else out
+    _check("out", dtab, torch.float32, (T, K, C), dev)
     if T == 0:
         return dtab
     sb, _ = bwd_batch("blend.cu", C, P)
@@ -468,3 +478,62 @@ def bin_emit(rect_min: torch.Tensor, w_rect: torch.Tensor, depth: torch.Tensor,
     _raise_on(err, "bin_emit")
     launch_counts["bin_emit"] += 1
     return tile, dep, gauss, quads
+
+
+def _track_args(rows: torch.Tensor, scalars: torch.Tensor):
+    if rows.device.type != "cuda":
+        raise ValueError("the CUDA tracking kernels take CUDA tensors only")
+    dev = rows.device
+    S, rc = rows.shape
+    if rc not in (8, 13):
+        raise ValueError(f"slot rows of {rc} columns: need 8 (isotropic) or 13 (anisotropic)")
+    _check("rows", rows, torch.float32, (S, rc), dev)
+    _check("scalars", scalars, torch.float32, (28,), dev)
+    return S, rc, dev
+
+
+def track_project_fwd(rows: torch.Tensor, valid: torch.Tensor, tile: torch.Tensor,
+                      scalars: torch.Tensor, grid_x: int, img_shape, tile_shape):
+    """The tracker's per-slot projection (``csrc/track.cu``).  rows [S, 8]
+    (isotropic) or [S, 13] (anisotropic) f32 as the pose cache gathers
+    them, valid [S] bool, tile [S] int32 true tile ids of a grid ``grid_x``
+    wide, scalars [28] f32 (``render_stream.make_scalars``), img_shape
+    (height, width) -> (K1's table [S, 10] f32, ok [S] bool), equal to the
+    bit to ``render_tracked.track_project_plain``."""
+    S, rc, dev = _track_args(rows, scalars)
+    _check("valid", valid, torch.bool, (S,), dev)
+    _check("tile", tile, torch.int32, (S,), dev)
+    table = torch.empty((S, 10), dtype=torch.float32, device=dev)
+    ok = torch.empty((S,), dtype=torch.bool, device=dev)
+    if S == 0:
+        return table, ok
+    (img_h, img_w), (th, tw) = img_shape, tile_shape
+    err = _load("track.cu").track_project_fwd(
+        rows.data_ptr(), valid.data_ptr(), tile.data_ptr(), scalars.data_ptr(), S, rc,
+        int(grid_x), float(img_w), float(img_h), float(tw), float(th), 1.0 / tw, 1.0 / th,
+        table.data_ptr(), ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "track_project_fwd")
+    launch_counts["track_project_fwd"] += 1
+    return table, ok
+
+
+def track_project_bwd(rows: torch.Tensor, gtable: torch.Tensor, scalars: torch.Tensor,
+                      img_shape) -> torch.Tensor:
+    """The projection's backward to the pose (``csrc/track.cu``, a launch
+    and a finishing launch): rows and scalars as :func:`track_project_fwd`,
+    gtable [S, 10] the table's cotangent -> the gradient of the 28 scalars
+    [28] f32, 0 past the pose's 12, summed in a fixed order."""
+    S, rc, dev = _track_args(rows, scalars)
+    _check("gtable", gtable, torch.float32, (S, 10), dev)
+    if S == 0:
+        return torch.zeros((28,), dtype=torch.float32, device=dev)
+    lib = _load("track.cu")
+    partial = torch.empty((lib.track_bwd_blocks(S), 12), dtype=torch.float32, device=dev)
+    gsc = torch.empty((28,), dtype=torch.float32, device=dev)
+    img_h, img_w = img_shape
+    err = lib.track_project_bwd(rows.data_ptr(), gtable.data_ptr(), scalars.data_ptr(), S, rc,
+                                float(img_w), float(img_h), partial.data_ptr(), gsc.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "track_project_bwd")
+    launch_counts["track_project_bwd"] += 1
+    return gsc

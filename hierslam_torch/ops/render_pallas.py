@@ -3,7 +3,9 @@
 :func:`blend_classes` blends the capacity classes of one render, each at
 its true tile ids, into buffers they share, through one
 ``torch.autograd.Function``; :func:`blend_tiles_pallas` is its one-class
-case with row b tile b.  On CUDA tensors its forward launches kernel K1
+case with row b tile b, and :func:`blend_run` the case of classes that
+lie one after another in one run of slots (the tracker's), whose gradient
+is one tensor.  On CUDA tensors its forward launches kernel K1
 and its backward kernel K2 once a class (``csrc/blend.cu``, via
 ``ops/kernels.py``).  On CPU tensors the forward is
 the plain blend (``ops/render_xla.blend_table``) and the backward
@@ -84,45 +86,73 @@ def blend_bwd_plain(table: torch.Tensor, ok: torch.Tensor, gacc: torch.Tensor,
     return torch.cat(out) if out else torch.zeros_like(table)
 
 
+def _run_views(run: torch.Tensor, shapes):
+    """The classes of a run of slots: views [n_c, k_c, ...] of ``run``'s
+    consecutive parts."""
+    sizes = [n * k for n, k in shapes]
+    return [v.view(n, k, *run.shape[1:]) for v, (n, k) in zip(run.split(sizes), shapes)]
+
+
+def _class_args(shapes, classes):
+    """(tables, slot masks, tile ids) of ``_BlendClasses``' class arguments."""
+    if shapes is None:
+        n = len(classes) // 3
+        return classes[:n], classes[n:2 * n], classes[2 * n:]
+    return _run_views(classes[0], shapes), _run_views(classes[1], shapes), classes[2:]
+
+
 class _BlendClasses(torch.autograd.Function):
     """The classes of one render: ``n`` tables, then their ``n`` slot masks
     and ``n`` tile-id vectors (None: row b is tile b), blended into shared
-    buffers of ``n_tiles`` rows."""
+    buffers of ``n_tiles`` rows.  With ``shapes`` (the classes' [n_c, k_c])
+    the tables and masks are instead one run each, [S, 7+F] and [S], the
+    classes their consecutive parts; the backward then writes every class's
+    cotangent into its part of one [S, 7+F] buffer, the run's gradient."""
 
     @staticmethod
-    def forward(ctx, grid_x, tile_shape, n_tiles, n, *classes):
-        tables = classes[:n]
+    def forward(ctx, grid_x, tile_shape, n_tiles, shapes, *classes):
+        tables, oks, ids = _class_args(shapes, classes)
         dev = tables[0].device
         P = tile_shape[0] * tile_shape[1]
         acc = torch.empty((n_tiles, P, tables[0].shape[-1] - 5), dtype=torch.float32,
                           device=dev)
         ft, med = (torch.empty((n_tiles, P), dtype=torch.float32, device=dev) for _ in range(2))
-        ctx.meta = (grid_x, tile_shape, n, tables[0].is_cuda)
+        ctx.meta = (grid_x, tile_shape, shapes, tables[0].is_cuda)
         if tables[0].is_cuda:
             last, mslot = (torch.empty((n_tiles, P), dtype=torch.int32, device=dev)
                            for _ in range(2))
-            for tab, ok, ids in zip(tables, classes[n:2 * n], classes[2 * n:]):
-                kernels.blend_fwd(tab, ok, grid_x, tile_shape, ids, (acc, ft, med, last, mslot))
+            for tab, ok, i in zip(tables, oks, ids):
+                kernels.blend_fwd(tab, ok, grid_x, tile_shape, i, (acc, ft, med, last, mslot))
             ctx.save_for_backward(ft, last, mslot, *classes)
         else:
-            for tab, ok, ids in zip(tables, classes[n:2 * n], classes[2 * n:]):
-                blend_fwd_plain(tab, ok, grid_x, tile_shape, ids, (acc, ft, med))
+            for tab, ok, i in zip(tables, oks, ids):
+                blend_fwd_plain(tab, ok, grid_x, tile_shape, i, (acc, ft, med))
             ctx.save_for_backward(*classes)
         return acc, ft, med
 
     @staticmethod
     def backward(ctx, gacc, gft, gmed):
-        grid_x, tile_shape, n, cuda = ctx.meta
+        grid_x, tile_shape, shapes, cuda = ctx.meta
         gacc, gft, gmed = (g.contiguous() for g in (gacc, gft, gmed))
         saved = ctx.saved_tensors
         classes = saved[3:] if cuda else saved
+        tables, oks, ids = _class_args(shapes, classes)
+        n = len(ids)
+        if shapes is None:
+            outs = [None] * n
+        else:
+            drun = torch.empty_like(classes[0])
+            outs = _run_views(drun, shapes)
         dtabs = []
-        for tab, ok, ids in zip(classes[:n], classes[n:2 * n], classes[2 * n:]):
+        for tab, ok, i, out in zip(tables, oks, ids, outs):
             if cuda:   # saved[:3]: final T, last and median slot of every tile
                 dtabs.append(kernels.blend_bwd(tab, ok, *saved[:3], gacc, gft, gmed, grid_x,
-                                               tile_shape, ids))
+                                               tile_shape, i, out=out))
             else:
-                dtabs.append(blend_bwd_plain(tab, ok, gacc, gft, gmed, grid_x, tile_shape, ids))
+                d = blend_bwd_plain(tab, ok, gacc, gft, gmed, grid_x, tile_shape, i)
+                dtabs.append(d if out is None else out.copy_(d))
+        if shapes is not None:
+            return (None,) * 4 + (drun, None) + (None,) * n
         return (None, None, None, None, *dtabs) + (None,) * (2 * n)
 
 
@@ -135,20 +165,39 @@ def blend_classes(tables: Sequence[torch.Tensor], oks: Sequence[torch.Tensor],
     all, which the classes partition.  -> (acc [n_tiles, P, F+2], final_T
     [n_tiles, P], median [n_tiles, P]) in tile order.  One K1 launch a class
     forward and one K2 launch a class backward."""
-    if sum(int(t.shape[0]) for t in tables) != n_tiles:
-        raise ValueError(f"classes of {[int(t.shape[0]) for t in tables]} tiles do not "
-                         f"partition {n_tiles}")
+    _check_partition([int(t.shape[0]) for t in tables], n_tiles)
     ids = [i.to(torch.int32).contiguous() for i in tile_ids]
-    return _BlendClasses.apply(int(grid_x), tuple(tile_shape), int(n_tiles), len(tables),
+    return _BlendClasses.apply(int(grid_x), tuple(tile_shape), int(n_tiles), None,
                                *(t.contiguous() for t in tables),
                                *(o.contiguous() for o in oks), *ids)
+
+
+def blend_run(table: torch.Tensor, ok: torch.Tensor, shapes: Sequence[Tuple[int, int]],
+              tile_ids: Sequence[torch.Tensor], grid_x: int, tile_shape: Tuple[int, int],
+              n_tiles: int):
+    """:func:`blend_classes` of classes that lie one after another in one
+    run: table [S, 7+F] and ok [S], class c its next n_c k_c slots as
+    [n_c, k_c], at the tiles ``tile_ids[c]``.  Empty classes are skipped.
+    The gradient of ``table`` is one [S, 7+F] tensor, each class's K2
+    writing its own part of it."""
+    keep = [c for c, (nb, _) in enumerate(shapes) if nb]   # an empty class's part is empty
+    _check_partition([shapes[c][0] for c in keep], n_tiles)
+    ids = [tile_ids[c].to(torch.int32).contiguous() for c in keep]
+    return _BlendClasses.apply(int(grid_x), tuple(tile_shape), int(n_tiles),
+                               tuple(tuple(shapes[c]) for c in keep), table.contiguous(),
+                               ok.contiguous(), *ids)
+
+
+def _check_partition(rows, n_tiles: int) -> None:
+    if sum(rows) != n_tiles:
+        raise ValueError(f"classes of {rows} tiles do not partition {n_tiles}")
 
 
 def blend_tiles_pallas(table: torch.Tensor, ok: torch.Tensor, grid_x: int,
                        tile_shape: Tuple[int, int]):
     """Fused tile blend, row b of the table tile b: table [T, K, 7+F], ok
     [T, K] bool -> (acc [T, P, F+2], final_T [T, P], median [T, P])."""
-    return _BlendClasses.apply(int(grid_x), tuple(tile_shape), int(table.shape[0]), 1,
+    return _BlendClasses.apply(int(grid_x), tuple(tile_shape), int(table.shape[0]), None,
                                table.contiguous(), ok.contiguous(), None)
 
 

@@ -360,7 +360,10 @@ def render_from_table(table: torch.Tensor, b: StreamBinning, w2c: torch.Tensor, 
     H, W = camera.height, camera.width
     grid = config.grid(H, W)
     c_used = COL_FEAT + n_feat
-    table_s = torch.cat([table[:, :c_used], sentinel_row(c_used, table.device)], 0)
+    # a slice's backward allocates a zero table and copies the gradient in:
+    # none where every column is used
+    cols = table if table.shape[1] == c_used else table[:, :c_used]
+    table_s = torch.cat([cols, sentinel_row(c_used, table.device)], 0)
     stream = gather_rows(table_s, b.lists.idx, c_used, config.grad_pair_budget,
                          config.grad_bf16, b.inverse)
     scalars = make_scalars(w2c.detach(), camera)

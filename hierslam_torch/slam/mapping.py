@@ -265,6 +265,7 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
                     if it >= prune_cfg.remove_big_after:
                         big = torch.exp(log_scale) > 0.1 * variables["scene_radius"]
                         removed = removed | (active & big)
+                    del logit, log_scale   # views: kept, they hold this table to the end
                     variables["active"] = active & ~removed
                     opt = optim.zero_moment_rows(opt, removed)
                     if packed:
@@ -297,6 +298,9 @@ def make_mapper(camera, loss_cfg: LossConfig, raster_cfg: RasterConfig,
                         variables["max_2D_radius"])
                 for n, v in parts.items():
                     traces.setdefault(n, []).append(v)
+                # the iteration's graph and gradients go now: kept, the old
+                # gradients would live through the next iteration's backward
+                del out, loss, inputs, grads, ggp, gmlp, leaves, mlp_l
 
             if it in events:
                 full = dict(params)

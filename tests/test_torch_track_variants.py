@@ -103,8 +103,12 @@ def test_anisotropic_track_cache_matches_jax():
                                JRasterConfig(**RC), margin_px=12.0)
     ct = trt.build_track_cache({k: t(v) for k, v in pn.items()}, None, t(q0), t(t0), tc,
                                trast.RasterConfig(**RC), margin_px=12.0)
-    assert all(s.dim() == 3 and s.shape[-1] == 6 for s in ct.scale if s.shape[0])
-    for a, b in zip(ct.scale, cj.scale):
+    # each class's world covariances: its part of the run's shape columns
+    shapes = [tuple(v.shape) for v in ct.slot_valid]
+    assert ct.run.rows.shape[1] == 13
+    scale = [c.reshape(n, k, 6) for c, (n, k) in
+             zip(ct.run.rows[:, 7:].split([n * k for n, k in shapes]), shapes)]
+    for a, b in zip(scale, cj.scale):
         b = np.asarray(b)
         np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=1e-5 * np.abs(b).max())
     np.testing.assert_array_equal(ct.radii0.numpy(), np.asarray(cj.radii0))

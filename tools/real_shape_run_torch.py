@@ -364,7 +364,8 @@ def run(argv=None, runner_hook=None):
     from hierslam_torch import resolve_device
     from hierslam_torch.datasets import get_dataset
     from hierslam_torch.eval.runner import run_final_eval
-    from hierslam_torch.ops import binning, gather_vjp, kernels, render_pallas, render_stream
+    from hierslam_torch.ops import (binning, gather_vjp, kernels, render_pallas, render_stream,
+                                    render_tracked)
     from hierslam_torch.slam.pipeline import SLAMRunner
 
     dev = resolve_device(args.device)
@@ -381,7 +382,7 @@ def run(argv=None, runner_hook=None):
         torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     for counts in (render_pallas.plain_counts, render_stream.plain_counts,
-                   gather_vjp.plain_counts, binning.plain_counts):
+                   gather_vjp.plain_counts, binning.plain_counts, render_tracked.plain_counts):
         for k in counts:
             counts[k] = 0
     rec = {"binnings": [], "track_dropped": []}
@@ -420,7 +421,8 @@ def run(argv=None, runner_hook=None):
     wall = time.time() - t0
     launches = dict(kernels.launch_counts)
     plain = dict(render_pallas.plain_counts, **render_stream.plain_counts,
-                 **gather_vjp.plain_counts, **binning.plain_counts)
+                 **gather_vjp.plain_counts, **binning.plain_counts,
+                 **render_tracked.plain_counts)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
 
     n_frames = params_np["cam_unnorm_rots"].shape[-1]
